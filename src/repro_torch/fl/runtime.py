@@ -1,0 +1,142 @@
+"""Whole-cycle flat-parameter FL runtime (counterpart of
+`repro.fl.runtime`).
+
+All N silo replicas live in one `(N, T)` fp32 matrix and the 2E
+directed-edge buffers in one `(2E, T)` matrix kept in dst-sorted CSR
+order, so each round is three array steps:
+
+  1. local SGD: per-silo gradients of the flat loss (`torch.func.vmap`
+     over `grad_and_value`), then `opt.update` on the whole matrix;
+  2. refresh: ``buf = where(strong, w[src], buf)``, fresh weights on the
+     round's strong edges and stale ones elsewhere;
+  3. aggregation: one `edge_aggregate` over the CSR rows (the CUDA kernel
+     on a card, its plain version on the CPU).
+
+`make_cycle_fn` runs the rounds of a cycle in a Python loop and syncs
+with the host only when the caller reads the losses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.fl import flat as flatmod
+from repro_torch.fl.dpasgd import RoundPlan
+from repro_torch.kernels.gossip_combine import ops as gossip_ops
+from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+
+
+@dataclasses.dataclass
+class FlatFLState:
+    """w (N, T) flat silo params; opt_state: flat-optimizer state;
+    buffers (2E, T) edge buffers in DST-SORTED order (buffers[e] = last
+    weights of src(e) seen by dst(e), stale over weak edges)."""
+
+    w: torch.Tensor
+    opt_state: Any
+    buffers: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatRuntime:
+    """Host-side plan bundle: flat layout + CSR edge order."""
+
+    spec: flatmod.FlatSpec
+    num_silos: int
+    order: np.ndarray        # (2E,) original-edge -> sorted position perm
+    row_ptr: np.ndarray      # (N+1,) int32 CSR offsets
+    src_sorted: np.ndarray   # (2E,) int32
+    dst_sorted: np.ndarray   # (2E,) int32 (non-decreasing)
+    strong: np.ndarray       # (R, 2E) bool, sorted edge order
+    coeffs: np.ndarray       # (R, 2E) f32, sorted edge order
+    diag: np.ndarray         # (R, N) f32
+
+    @property
+    def num_rounds_cycle(self) -> int:
+        return self.strong.shape[0]
+
+
+def make_flat_runtime(plan: RoundPlan, template_params: flatmod.Params,
+                      num_silos: int) -> FlatRuntime:
+    """Sort the plan's directed edges by destination once, host-side.
+    The per-round tables are C-contiguous, so a round's row is one
+    contiguous slice (the kernel takes only contiguous inputs)."""
+    spec = flatmod.make_flat_spec(template_params)
+    order, row_ptr = gossip_ops.csr_sort(plan.dst, num_silos)
+    return FlatRuntime(
+        spec=spec, num_silos=num_silos, order=order, row_ptr=row_ptr,
+        src_sorted=plan.src[order].astype(np.int32),
+        dst_sorted=plan.dst[order].astype(np.int32),
+        strong=np.ascontiguousarray(plan.strong[:, order]),
+        coeffs=np.ascontiguousarray(plan.coeffs[:, order], np.float32),
+        diag=np.ascontiguousarray(plan.diag, np.float32))
+
+
+def init_flat_state(w0: torch.Tensor, opt, rt: FlatRuntime) -> FlatFLState:
+    """Every silo starts from the same flat row ``w0`` (T,), the standard
+    FL assumption; buffers start as the sources' rows."""
+    w = w0.to(torch.float32).repeat(rt.num_silos, 1)
+    src = torch.as_tensor(rt.src_sorted, dtype=torch.long, device=w.device)
+    return FlatFLState(w, opt.init(w), w[src])
+
+
+def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
+                  lr_scale: float = 1.0, aggregator: str = "kernel"):
+    """Build the whole-cycle step.
+
+    Returns ``cycle(state, batches, strong, coeffs, diag) -> (state,
+    losses)``: batches has tensors ``x`` (R, u, N, b, ...) and ``y``
+    (R, u, N, b); the plan slices are (R, 2E) / (R, N) tensors in the
+    runtime's sorted edge order, on the state's device; losses (R,) is
+    each round's mean loss over local steps and silos. R is whatever
+    slice of the cycle the caller passes.
+
+    aggregator: "kernel" (`ops.edge_aggregate`: the CUDA kernel for
+    tensors on a card, the plain version on the CPU) or "reference"
+    (the plain version everywhere).
+    """
+    if aggregator not in ("kernel", "reference"):
+        raise ValueError(f"aggregator must be 'kernel' or 'reference', "
+                         f"got {aggregator!r}")
+    aggregate = (gossip_ops.edge_aggregate if aggregator == "kernel"
+                 else edge_aggregate_ref)
+    spec = rt.spec
+    on_device: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def flat_loss(w_row, batch):
+        return loss_fn(flatmod.unravel(spec, w_row), batch)
+
+    silo_grads = torch.func.vmap(torch.func.grad_and_value(flat_loss))
+
+    @torch.no_grad()
+    def cycle(state: FlatFLState, batches, strong, coeffs, diag):
+        dev = state.w.device
+        if dev not in on_device:
+            on_device[dev] = (
+                torch.as_tensor(rt.src_sorted, dtype=torch.long, device=dev),
+                torch.as_tensor(rt.row_ptr, dtype=torch.int32, device=dev))
+        src, row_ptr = on_device[dev]
+        w, os_, buf = state.w, state.opt_state, state.buffers
+        losses = []
+        for r in range(strong.shape[0]):
+            round_loss = []
+            for u in range(batches["x"].shape[1]):
+                batch = {"x": batches["x"][r, u], "y": batches["y"][r, u]}
+                grads, loss = silo_grads(w, batch)
+                w, os_ = opt.update(w, grads, os_, lr_scale)
+                round_loss.append(loss)
+            buf = torch.where(strong[r][:, None], w[src], buf)
+            w = aggregate(w, buf, coeffs[r], row_ptr, diag[r])
+            losses.append(torch.stack(round_loss).mean())
+        return FlatFLState(w, os_, buf), torch.stack(losses)
+
+    return cycle
+
+
+def unpack_params(rt: FlatRuntime, state: FlatFLState) -> flatmod.Params:
+    """(N, T) -> dict of views with a leading silo axis."""
+    return flatmod.unravel_stacked(rt.spec, state.w)

@@ -1,0 +1,35 @@
+"""Plain PyTorch version of the CSR edge aggregation.
+
+    out[i] = diag[i] * w[i] + sum_{row_ptr[i] <= e < row_ptr[i+1]} coeffs[e] * buf[e]
+
+over dst-sorted edges, in fp32: the sum starts from zero, adds the
+products in ascending edge order, and ``diag*w`` comes last. Each
+product is its own tensor op and is rounded before the add, the same
+arithmetic the CUDA kernel pins with __fmul_rn / __fadd_rn, so the two
+agree bit for bit. It is also bit-equal to the reference's
+`segment_sum` oracle on XLA:CPU. No `index_add_`: on CUDA its atomics
+would add in a varying order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def edge_aggregate_ref(w: torch.Tensor, buf: torch.Tensor,
+                       coeffs: torch.Tensor, row_ptr: torch.Tensor,
+                       diag: torch.Tensor) -> torch.Tensor:
+    """w (N, T), buf (2E, T) dst-sorted, coeffs (2E,), row_ptr (N+1,)
+    integer offsets, diag (N,) -> (N, T). Reads row_ptr on the host."""
+    n = w.shape[0]
+    rp = row_ptr.tolist()
+    deg = [rp[i + 1] - rp[i] for i in range(n)]
+    acc = torch.zeros_like(w)
+    # Step j adds every row's j-th incoming edge at once; within a row
+    # the edges still arrive in ascending order.
+    for j in range(max(deg, default=0)):
+        rows = [i for i in range(n) if deg[i] > j]
+        edges = torch.tensor([rp[i] + j for i in rows], device=w.device)
+        rows_t = torch.tensor(rows, device=w.device)
+        acc[rows_t] = acc[rows_t] + coeffs[edges, None] * buf[edges]
+    return diag[:, None] * w + acc

@@ -1,0 +1,6 @@
+"""Silo networks: the paper's five, behind one registry."""
+
+from repro_torch.networks.registry import get_network, list_networks
+from repro_torch.networks.zoo import NetworkSpec, Silo
+
+__all__ = ["NetworkSpec", "Silo", "get_network", "list_networks"]
