@@ -23,7 +23,35 @@ Phases, each printing one JSON line:
    losses bit for bit (deterministic algorithms are on for both runs);
 5. cycle: one steady-state cycle (15 rounds) timed per aggregator, in
    turns, and a profile of where its device time goes: kernel time by
-   name, and the device's idle share against the unprofiled cycle time.
+   name, and the device's idle share against the unprofiled cycle time;
+6. flash_attention (this phase and those after it run without the
+   deterministic algorithms that run_fl turns on): the kernel against its
+   plain PyTorch version on the reference kernel tests' cases, bf16 cases
+   of the tensor-core route, and the yi-9b prefill shape (B=4, S=2048,
+   Hq=32, Hkv=4, hd=128, bf16, causal), within the reference tests'
+   tolerances (5e-4 f32, 2e-2 bf16); at the prefill shape also against
+   the plain version run in fp32, per row (FP32_ROW_REL_TOL); times the
+   kernel, the plain version and `F.scaled_dot_product_attention` (a
+   yardstick the port never calls) beside the bound;
+7. decode_attention: the same on the reference's decode cases and at
+   B=8, S=4096 with random lengths (also against fp32, and timed); cache
+   rows past the lengths are filled with NaN and must not change the
+   result; the yardstick is SDPA with a boolean length mask;
+8. llm_prefill: yi-9b at full width and depth, bf16, random weights drawn
+   on the card from a seeded generator; `make_prefill_step(cfg,
+   impl="kernel")` on 4 prompts of 2048 tokens must launch
+   `flash_attention` once per layer (48) and give last-position logits
+   within relative L2 5e-2 of `impl="reference"`; ms per prefill,
+   tokens/s and a profile;
+9. llm_decode: 8 slots (max_seq 2048) fed prompts of 16..128 tokens token
+   by token through `make_serve_step(cfg)` with a (B,) position vector,
+   then 32 greedy tokens each; 48 `decode_attention` launches per step;
+   logits held against a `decode_step(impl="reference")` run fed the same
+   tokens, and one slot's logits at its last prompt token against the
+   prefill path; then `decode_attention` on the run's own caches (8,
+   2048, 4, 128) at the schedule's lengths against its plain version
+   (bf16 and fp32) and timed there, which sets its `kernels` row; ms per
+   step, tokens/s beside the weights' floor, and a profile.
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Any
@@ -51,9 +79,12 @@ SRC = ROOT / "src"
 MAIN_SHAPE = dict(n=11, t=1_280_478)      # gaia silos, FEMNIST CNN size
 ROUNDS = 30
 
-# Data-sheet HBM rates (bytes/s) and non-tensor fp32 peaks (flop/s).
-_CARD_RATES = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-               ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# Data-sheet HBM rates (bytes/s), non-tensor fp32 peaks and dense bf16
+# tensor-core peaks (flop/s).
+_CARD_RATES = (("H200", 4.8e12, 67e12, 989e12),
+               ("H100 NVL", 3.9e12, 60e12, 835e12),
+               ("H100 PCIe", 2.0e12, 51e12, 756e12),
+               ("H100", 3.35e12, 67e12, 989e12))
 
 
 def emit(**fields) -> None:
@@ -61,10 +92,19 @@ def emit(**fields) -> None:
 
 
 def card_rates(name: str) -> tuple[float, float, str]:
-    for key, bw, flops in _CARD_RATES:
+    """(HBM bytes/s, fp32 flop/s, name of the row used)."""
+    for key, bw, flops, _ in _CARD_RATES:
         if key in name:
             return bw, flops, key
     return 3.35e12, 67e12, "H100 SXM (assumed)"
+
+
+def bf16_peak(name: str) -> float:
+    """Dense bf16 tensor-core flop/s of the card."""
+    for key, _, _, bf16 in _CARD_RATES:
+        if key in name:
+            return bf16
+    return 989e12
 
 
 def nvidia_smi_line() -> str:
@@ -208,7 +248,7 @@ def phase_run_fl(torch, ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.edge_aggregate.launches
-    ctx["launches"] = {"edge_aggregate": launches}
+    ctx["launches"]["edge_aggregate"] = launches
     if launches != ROUNDS:
         raise AssertionError(f"edge_aggregate launched {launches} times in "
                              f"{ROUNDS} rounds")
@@ -303,6 +343,564 @@ def phase_cycle(torch, ctx):
          profile=profile)
 
 
+# flash_attention cases of the reference's kernel tests: (b, hq, hkv, s,
+# hd, window, prefix, dtype), and one with whole key tiles masked for
+# some rows (window 8 over 32-key tiles), where the running max stays at
+# -inf until a later tile (the `safe` guard).
+FA_CASES = [
+    (2, 4, 2, 64, 32, 0, 0, "float32"),
+    (1, 8, 1, 128, 64, 0, 0, "float32"),      # MQA
+    (1, 8, 8, 96, 32, 0, 0, "float32"),       # MHA, ragged blocks
+    (2, 4, 4, 96, 32, 16, 0, "float32"),      # sliding window
+    (1, 2, 1, 64, 32, 0, 24, "float32"),      # bidirectional prefix
+    (1, 4, 2, 64, 32, 8, 16, "float32"),      # window + prefix
+    (2, 4, 2, 64, 64, 0, 0, "bfloat16"),      # bf16
+    (1, 16, 4, 80, 128, 0, 0, "float32"),     # hd=128, non-multiple seq
+    (1, 1, 1, 256, 64, 8, 0, "float32"),      # rows masked over whole tiles
+    # bf16 on the tensor-core route: masks, odd groups, ragged tiles
+    (1, 4, 2, 200, 128, 16, 40, "bfloat16"),  # window + prefix, hd=128
+    (2, 6, 2, 80, 64, 0, 0, "bfloat16"),      # group of 3
+    (1, 8, 1, 130, 32, 0, 0, "bfloat16"),     # MQA, hd=32
+    (1, 1, 1, 256, 128, 8, 0, "bfloat16"),    # rows masked over whole tiles
+]
+FA_MAIN = (4, 32, 4, 2048, 128, 0, 0, "bfloat16")   # yi-9b prefill
+# decode_attention cases: (b, hq, hkv, s, hd, dtype)
+DEC_CASES = [
+    (2, 4, 2, 128, 32, "float32"),
+    (1, 8, 1, 256, 64, "float32"),    # MQA
+    (2, 16, 4, 200, 128, "float32"),  # ragged blocks
+    (1, 4, 4, 96, 32, "bfloat16"),    # MHA bf16
+]
+DEC_MAIN = (8, 32, 4, 4096, 128, "bfloat16")        # yi-9b decode, 8 slots
+
+
+def _tol(dtype: str) -> dict:
+    """The reference kernel tests' tolerances (test_kernels._tol)."""
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=5e-4, atol=5e-4))
+
+
+def _compare(torch, got, want, dtype: str, what: str) -> float:
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    tol = _tol(dtype)
+    bad = (got - want).abs() > tol["atol"] + tol["rtol"] * want.abs()
+    if not torch.isfinite(got).all() or bool(bad.any()):
+        raise AssertionError(f"{what}: kernel and plain version differ, max "
+                             f"|diff| {err} (rtol=atol={tol['atol']})")
+    return err
+
+
+#: Largest per-row relative L2 distance (a row: one query's hd outputs)
+#: allowed between a bf16 kernel's output and its plain version run in
+#: fp32 on the same bf16 inputs, at the main path's shapes: about three
+#: times the largest reading on an H100 (0.0032 and 0.0020, PERF.md).
+#: Dropping one key tile of a row of n keys moves it by about
+#: sqrt(tile / n): 0.18 for 64 of 2,048.
+FP32_ROW_REL_TOL = {"flash_attention": 1e-2, "decode_attention": 6e-3}
+
+
+def _hold_fp32(torch, got, want32, kernel: str, what: str) -> dict:
+    """bf16 kernel output against the plain version in fp32: the overall
+    relative L2 distance and the largest per-row one."""
+    got, want32 = got.float(), want32.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    diff = (got - want32).norm(dim=-1)
+    row = float((diff / want32.norm(dim=-1).clamp_min(1e-30)).max())
+    rel = float((got - want32).norm() / want32.norm())
+    if row > FP32_ROW_REL_TOL[kernel]:
+        raise AssertionError(f"{what}: kernel vs fp32 plain version, row "
+                             f"relative L2 {row} > {FP32_ROW_REL_TOL[kernel]}")
+    return dict(rel_l2=rel, row_rel_l2_max=row)
+
+
+def device_ms(torch, fn, iters: int, warmup: int = 3, name=None) -> float:
+    """Device time per call under the profiler: all kernels' time, or only
+    those whose name contains ``name``. For calls too short to time with
+    events: back to back they would measure the host's launch rate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):  # now and then a profile comes back without kernels
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+        us = sum(ev.self_device_time_total for ev in kernels
+                 if name is None or name in ev.key)
+        if us > 0:
+            return us / 1e3 / iters
+        seen.append(len(kernels))
+    raise RuntimeError(f"the profiler saw no device time for {name!r} in "
+                       f"three profiles (device events per profile: {seen})")
+
+
+def _fa_inputs(torch, case, gen):
+    b, hq, hkv, s, hd, _, _, dt = case
+    dtype = getattr(torch, dt)
+    return [torch.randn((b, s, h, hd), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+def phase_flash_attention(torch, ctx):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    def plain(q, k, v, window=0, prefix=0):
+        return flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            window=window, prefix=prefix).transpose(1, 2)
+
+    # The FL phases pin deterministic algorithms, under which torch fills
+    # every new tensor and index_put checks its indices on the card; the
+    # serving phases run as a server would, without them.
+    torch.use_deterministic_algorithms(False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {}
+    for case in FA_CASES + [FA_MAIN]:
+        q, k, v = _fa_inputs(torch, case, gen)
+        win, pre, dt = case[5], case[6], case[7]
+        got = ops.flash_attention(q, k, v, window=win, prefix=pre)
+        torch.cuda.synchronize()
+        errs[str(case)] = _compare(torch, got, plain(q, k, v, win, pre), dt,
+                                   f"flash_attention {case}")
+        if case != FA_MAIN:
+            del got
+    # q, k, v, got are FA_MAIN's
+    fp32 = _hold_fp32(torch, got, plain(q.float(), k.float(), v.float()),
+                      "flash_attention", f"flash_attention {FA_MAIN}")
+    del got
+    b, hq, hkv, s, hd = FA_MAIN[:5]
+    kernel_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v), 10)
+    plain_ms = cuda_ms(torch, lambda: plain(q, k, v), 3, warmup=1)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    library_ms = cuda_ms(torch, sdpa, 10)
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - ops.flash_attention(q, k, v).float()).abs().max())
+    pairs = s * (s + 1) // 2                 # causal (qpos, kpos) pairs
+    flops = 4 * b * hq * hd * pairs
+    nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+    bw, _, rate_key = card_rates(ctx["kind"])
+    peak = bf16_peak(ctx["kind"])
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    ctx["flash_attention"] = dict(
+        max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms)
+    emit(phase="flash_attention", ok=True,
+         shape=dict(b=b, s=s, hq=hq, hkv=hkv, hd=hd, dtype="bfloat16",
+                    causal=True),
+         max_abs_diff=errs, vs_fp32_plain=fp32, kernel_ms=kernel_ms,
+         plain_ms=plain_ms, library_ms=library_ms,
+         library_max_abs_diff=lib_err, fp32_row_rel_tol=FP32_ROW_REL_TOL[
+             "flash_attention"],
+         bound_ms=max(bytes_ms, ops_ms), flops=flops, bytes=nbytes,
+         rates=dict(card=rate_key, hbm_bytes_per_s=bw,
+                    bf16_flop_per_s=peak),
+         achieved_tflop_per_s=flops / kernel_ms / 1e9)
+
+
+def _dec_inputs(torch, case, gen):
+    b, hq, hkv, s, hd, dt = case
+    dtype = getattr(torch, dt)
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, s, hkv, hd), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    return q, k, v, lengths
+
+
+def _dec_plain(q, k, v, lengths):
+    """The decode kernel's plain version on the transformer's cache
+    layout (B, S, Hkv, hd)."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    return decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                lengths)
+
+
+def phase_decode_attention(torch, ctx):
+    from repro_torch.kernels.decode_attention import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    errs = {}
+    for case in DEC_CASES + [DEC_MAIN]:
+        q, k, v, lengths = _dec_inputs(torch, case, gen)
+        got = ops.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        errs[str(case)] = _compare(torch, got, _dec_plain(q, k, v, lengths),
+                                   case[-1], f"decode_attention {case}")
+        # cache rows at or past lengths[b] are never read
+        pos = torch.arange(k.shape[1], device="cuda")[None, :, None, None]
+        past = pos >= lengths.long()[:, None, None, None]
+        k2 = torch.where(past, float("nan"), k)
+        v2 = torch.where(past, float("nan"), v)
+        if not torch.equal(ops.decode_attention(q, k2, v2, lengths), got):
+            raise AssertionError(f"decode_attention {case}: rows past "
+                                 "lengths changed the output")
+    # q, k, v, lengths, got are DEC_MAIN's
+    fp32 = _hold_fp32(torch, got, _dec_plain(q.float(), k.float(),
+                                             v.float(), lengths),
+                      "decode_attention", f"decode_attention {DEC_MAIN}")
+    ctx["decode_attention_errs"] = errs
+    timing = _decode_timing(torch, ctx, q, k, v, lengths.cpu())
+    emit(phase="decode_attention", ok=True, max_abs_diff=errs,
+         vs_fp32_plain=fp32,
+         fp32_row_rel_tol=FP32_ROW_REL_TOL["decode_attention"], **timing)
+
+
+def _decode_timing(torch, ctx, q, k, v, lens_host) -> dict:
+    """Times of the decode kernel (called as the decode step calls it,
+    with its lengths on the host and on the card), its plain version and
+    SDPA with a boolean length mask, beside the bound for the cache rows
+    these lengths make visible."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops
+    b, hq, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    lens_dev = lens_host.to("cuda", torch.int32)
+    kernel_ms = device_ms(torch, lambda: ops.decode_attention(
+        q, k, v, lens_host, lengths_dev=lens_dev), 20, name="decode_")
+    call_ms = cuda_ms(torch, lambda: ops.decode_attention(
+        q, k, v, lens_host, lengths_dev=lens_dev), 20)
+    plain_ms = device_ms(torch, lambda: _dec_plain(q, k, v, lens_dev), 10)
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lens_dev[:, None])[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True)
+    library_ms = device_ms(torch, sdpa, 20)
+    lib_err = float((sdpa()[:, :, 0].float()
+                     - ops.decode_attention(q, k, v, lens_host).float())
+                    .abs().max())
+    rows = int(lens_host.sum())            # cache rows this run must read
+    nbytes = 2 * (2 * rows * hkv * hd + 2 * b * hq * hd) + 4 * b
+    flops = 4 * rows * hq * hd
+    bw, _, rate_key = card_rates(ctx["kind"])
+    peak = bf16_peak(ctx["kind"])
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    return dict(
+        shape=dict(b=b, s=s, hq=hq, hkv=hkv, hd=hd,
+                   dtype=str(q.dtype).split(".")[-1],
+                   lengths=lens_host.tolist(), chunk=ops.CHUNK),
+        kernel_ms=kernel_ms, call_ms_events=call_ms, plain_ms=plain_ms,
+        library_ms=library_ms, library_max_abs_diff=lib_err,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes, bytes_all_s=2 * 2 * b * s * hkv * hd, flops=flops,
+        rates=dict(card=rate_key, hbm_bytes_per_s=bw, bf16_flop_per_s=peak),
+        achieved_gb_per_s=nbytes / kernel_ms / 1e6)
+
+
+# yi-9b serving forward: full width and depth, bf16, random weights from a
+# seeded generator on the card.
+LLM_ARCH = "yi_9b"
+PREFILL_SHAPE = (4, 2048)                 # prompts x tokens
+DECODE_SLOTS = 8
+DECODE_MAX_SEQ = 2048
+DECODE_PROMPTS = (16, 32, 48, 64, 80, 96, 112, 128)  # one length per slot
+DECODE_NEW = 32                           # greedy tokens per slot
+#: relative L2 distance allowed between two paths' logits (PERF.md)
+LOGITS_REL_TOL = 5e-2
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _llm(torch, ctx):
+    """yi-9b's config and weights, made once on the card."""
+    if "llm" not in ctx:
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as tf
+        cfg = get_config(LLM_ARCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg,
+                                torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        ctx["llm"] = (cfg, params)
+        ctx["llm_init_s"] = time.perf_counter() - t0
+    return ctx["llm"]
+
+
+def _param_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(_param_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+def phase_llm_prefill(torch, ctx):
+    import numpy as np
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg, params = _llm(torch, ctx)
+    b, s = PREFILL_SHAPE
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (b, s)), device="cuda")}
+    step = make_prefill_step(cfg, impl="kernel")
+    with torch.inference_mode():
+        ops.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = ops.flash_attention.launches
+        ctx["launches"]["flash_attention"] = launches
+        if launches != cfg.num_layers:
+            raise AssertionError(f"flash_attention launched {launches} "
+                                 f"times in one prefill of {cfg.num_layers} "
+                                 "layers")
+        if tuple(logits.shape) != (b, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError("prefill logits are not finite of shape "
+                                 f"({b}, {cfg.vocab_size})")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        profile = profile_window(torch, lambda: step(params, batch), 1,
+                                 min(times) * 1e3)
+        ref_step = make_prefill_step(cfg, impl="reference")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ref_step(params, batch)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    rel = _rel_l2(logits, ref)
+    if rel > LOGITS_REL_TOL:
+        raise AssertionError(f"prefill logits: kernel vs reference relative "
+                             f"L2 {rel} > {LOGITS_REL_TOL}")
+    ms = min(times) * 1e3
+    emit(phase="llm_prefill", ok=True, arch=cfg.name,
+         layers=cfg.num_layers, params=cfg.param_count(),
+         param_bytes=_param_bytes(params), init_s=ctx["llm_init_s"],
+         batch=b, seq=s, flash_attention_launches=launches,
+         first_call_s=first_s, ms_per_prefill=ms, ms_runs=[t * 1e3
+                                                          for t in times],
+         tokens_per_s=b * s / (ms / 1e3), reference_ms=ref_s * 1e3,
+         logits_rel_l2=rel, logits_max_abs_diff=float(
+             (logits.float() - ref.float()).abs().max()),
+         logits_abs_max=float(ref.float().abs().max()),
+         argmax_equal=int((logits.argmax(-1) == ref.argmax(-1)).sum()),
+         rel_tol=LOGITS_REL_TOL, profile=profile)
+
+
+def phase_llm_decode(torch, ctx):
+    """Eight slots with prompts of distinct lengths, fed token by token as
+    the serving engine's chunked prefill does (slot b starts when
+    128 - len_b steps have passed, so every slot's prompt ends on the same
+    step and the per-slot positions differ throughout), then greedy
+    tokens. The kernel run picks the tokens; a reference run is fed the
+    same tokens, so the two runs' logits compare step by step."""
+    import numpy as np
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tf
+
+    cfg, params = _llm(torch, ctx)
+    serve = make_serve_step(cfg)
+    nb = DECODE_SLOTS
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in DECODE_PROMPTS]
+    last = max(DECODE_PROMPTS) - 1          # the step of every last prompt token
+    start = [last + 1 - n for n in DECODE_PROMPTS]
+    steps = last + DECODE_NEW
+    check_at = {20: "early", last: "last_prompt", steps - 1: "generating"}
+    lens_at = {}
+    st_k = tf.init_decode_state(cfg, nb, DECODE_MAX_SEQ, device="cuda")
+    st_r = tf.init_decode_state(cfg, nb, DECODE_MAX_SEQ, device="cuda")
+    out = [[] for _ in range(nb)]
+    rels, agree, step_s, ref_step_s = [], 0, [], []
+    cross = None
+    with torch.inference_mode():
+        ops.decode_attention.launches = 0
+        for t in range(steps):
+            pos = torch.tensor([max(0, t - start[i]) for i in range(nb)])
+            if t in check_at:
+                lens_at[check_at[t]] = torch.clamp(
+                    pos + 1, max=DECODE_MAX_SEQ).to(torch.int32)
+            toks = [int(prompts[i][t - start[i]]) if start[i] <= t <= last
+                    else (out[i][-1] if t > last else 0) for i in range(nb)]
+            tokens = torch.tensor(toks, device="cuda")[:, None]
+            st_k.position = pos
+            st_r.position = pos
+            before = ops.decode_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lk, st_k = serve(params, tokens, st_k)
+            nxt = lk[:, 0].argmax(-1).cpu()
+            step_s.append(time.perf_counter() - t0)
+            if ops.decode_attention.launches - before != cfg.num_layers:
+                raise AssertionError("decode_attention launched "
+                                     f"{ops.decode_attention.launches - before}"
+                                     f" times in one decode step")
+            t0 = time.perf_counter()
+            lr, st_r = tf.decode_step(params, cfg, tokens, st_r,
+                                      impl="reference")
+            nxt_r = lr[:, 0].argmax(-1).cpu()
+            ref_step_s.append(time.perf_counter() - t0)
+            active = [i for i in range(nb) if t >= start[i]]
+            if not torch.isfinite(lk[active]).all():
+                raise AssertionError(f"non-finite decode logits at step {t}")
+            rels.append(_rel_l2(lk[active], lr[active]))
+            if t == last:
+                cross = lk[nb - 1, 0].float().clone()
+            if t >= last:
+                agree += int((nxt == nxt_r).sum())
+                for i in range(nb):
+                    out[i].append(int(nxt[i]))
+        launches = ops.decode_attention.launches
+        ctx["launches"]["decode_attention"] = launches
+        # the kernel against its plain version on the live caches at the
+        # schedule's lengths (these launches are not the path's)
+        live = _decode_live_check(torch, ctx, cfg, st_k, lens_at)
+        # a few more generating steps, profiled
+        holder = {"state": st_k,
+                  "tokens": torch.tensor([o[-1] for o in out],
+                                         device="cuda")[:, None]}
+
+        def one_step():
+            lg, holder["state"] = serve(params, holder["tokens"],
+                                        holder["state"])
+            holder["tokens"] = lg[:, 0].argmax(-1, keepdim=True)
+            lg[:, 0].argmax(-1).cpu()
+
+        profile = profile_window(torch, one_step, 4,
+                                 1e3 * sum(step_s[last:]) / DECODE_NEW)
+        # the same prompt through the prefill path
+        pre = make_prefill_step(cfg, impl="kernel")(params, {
+            "tokens": torch.as_tensor(prompts[nb - 1], device="cuda")[None]})
+    cross_rel = _rel_l2(cross, pre[0])
+    worst = max(rels)
+    if worst > LOGITS_REL_TOL or cross_rel > LOGITS_REL_TOL:
+        raise AssertionError(f"decode logits: kernel vs reference relative "
+                             f"L2 up to {worst}, decode vs prefill "
+                             f"{cross_rel} (limit {LOGITS_REL_TOL})")
+    if launches != steps * cfg.num_layers:
+        raise AssertionError(f"decode_attention launched {launches} times "
+                             f"in {steps} steps")
+    gen_s = step_s[last:]
+    floor_ms = _param_bytes(params) / card_rates(ctx["kind"])[0] * 1e3
+    emit(phase="llm_decode", ok=True, arch=cfg.name, slots=nb,
+         max_seq=DECODE_MAX_SEQ, prompt_lengths=list(DECODE_PROMPTS),
+         new_tokens=DECODE_NEW, steps=steps,
+         decode_attention_launches=launches,
+         ms_per_step=1e3 * sum(step_s) / steps,
+         ms_per_step_median=1e3 * sorted(step_s)[steps // 2],
+         ms_per_step_generating=1e3 * sum(gen_s) / len(gen_s),
+         tokens_per_s=nb * steps / sum(step_s),
+         reference_ms_per_step=1e3 * sum(ref_step_s) / steps,
+         weight_floor_ms=floor_ms, logits_rel_l2_max=worst,
+         logits_rel_l2_mean=sum(rels) / len(rels),
+         greedy_same_share=agree / (nb * DECODE_NEW),
+         decode_vs_prefill_rel_l2=cross_rel, rel_tol=LOGITS_REL_TOL,
+         sample_tokens=out[nb - 1][:8], decode_attention_main_path=live,
+         profile=profile)
+    del ctx["llm"], params, st_k, st_r, holder
+    torch.cuda.empty_cache()
+
+
+def _decode_live_check(torch, ctx, cfg, state, lens_at) -> dict:
+    """`decode_attention` on the decode run's own caches (8, 2048, 4, 128)
+    of the first and last layers, at the lengths the schedule gave an
+    early step, the last prompt token and the last generating step,
+    against its plain version (bf16, `_tol`) and the plain version in
+    fp32; then its times at the last step's lengths, which set the
+    kernel's row."""
+    from repro_torch.kernels.decode_attention import ops
+    kv = state.caches["kv"][0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b = kv["k"].shape[1]
+
+    def query():
+        return torch.randn((b, cfg.num_heads, cfg.head_dim), generator=gen,
+                           device="cuda").to(kv["k"].dtype)
+
+    errs, fp32 = {}, {}
+    for layer in (0, cfg.num_layers - 1):
+        kc, vc = kv["k"][layer], kv["v"][layer]
+        for name, lens in lens_at.items():
+            q, lens_dev = query(), lens.to("cuda")
+            got = ops.decode_attention(q, kc, vc, lens, lengths_dev=lens_dev)
+            what = f"decode_attention, layer {layer}, {name} lengths"
+            key = f"layer {layer}, {name}"
+            errs[key] = _compare(torch, got, _dec_plain(q, kc, vc, lens_dev),
+                                 "bfloat16", what)
+            fp32[key] = _hold_fp32(
+                torch, got, _dec_plain(q.float(), kc.float(), vc.float(),
+                                       lens_dev), "decode_attention", what)
+    timing = _decode_timing(torch, ctx, query(), kv["k"][0], kv["v"][0],
+                            lens_at["generating"])
+    ctx["decode_attention"] = dict(
+        max_abs_err=max(list(errs.values())
+                        + list(ctx["decode_attention_errs"].values())),
+        ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
+        bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+        library_ms=timing["library_ms"])
+    return dict(lengths={k: v.tolist() for k, v in lens_at.items()},
+                max_abs_diff=errs, vs_fp32_plain=fp32, **timing)
+
+
+def profile_window(torch, fn, iters: int, unprofiled_ms: float) -> dict:
+    """Where ``iters`` calls of ``fn`` spend their time: device time by
+    kernel name, the device's busy time per call and its idle share
+    against the unprofiled time per call, and the host operators with the
+    most CPU time of their own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    events = prof.key_averages()
+    kern = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in events if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    host = sorted(((ev.self_cpu_time_total, ev.key, ev.count)
+                   for ev in events if ev.device_type == DeviceType.CPU
+                   and ev.self_cpu_time_total > 0), reverse=True)
+    busy = sum(x[0] for x in kern) / 1e3 / iters
+    return dict(
+        calls=iters, device_busy_ms=busy, profiled_wall_ms=wall,
+        unprofiled_ms=unprofiled_ms,
+        idle_share=max(0.0, 1 - busy / unprofiled_ms),
+        kernel_launches=sum(x[2] for x in kern) // iters,
+        top_kernels=[dict(kernel=k[:90], device_ms=us / 1e3 / iters,
+                          calls=c // iters) for us, k, c in kern[:10]],
+        top_host_ops=[dict(op=k[:60], cpu_ms=us / 1e3 / iters,
+                           calls=c // iters) for us, k, c in host[:10]])
+
+
+def _kernel_row(ctx, name, replaces) -> dict:
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/csrc/{name}.cu", replaces=replaces,
+                launches=ctx["launches"].get(name, 0), **ctx[name])
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -313,9 +911,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    ctx: dict = {}
-    for phase in (phase_device, phase_build, phase_edge_aggregate,
-                  phase_run_fl, phase_cycle):
+    ctx: dict = {"launches": {}}
+    phases = [phase_device, phase_build, phase_edge_aggregate, phase_run_fl,
+              phase_cycle, phase_flash_attention, phase_decode_attention,
+              phase_llm_prefill, phase_llm_decode]
+    for phase in phases:
         try:
             phase(torch, ctx)
         except Exception as exc:
@@ -323,12 +923,13 @@ def main() -> int:
                  error=f"{type(exc).__name__}: {exc}")
             traceback.print_exc()
             return 1
-    ea = ctx["edge_aggregate"]
-    print(json.dumps({"kernels": [dict(
-        name="edge_aggregate", route="cuda",
-        source="src/repro_torch/csrc/edge_aggregate.cu",
-        replaces="src/repro/kernels/gossip_combine/kernel.py:114",
-        launches=ctx["launches"]["edge_aggregate"], **ea)]}))
+    print(json.dumps({"kernels": [
+        _kernel_row(ctx, "edge_aggregate",
+                    "src/repro/kernels/gossip_combine/kernel.py:114"),
+        _kernel_row(ctx, "flash_attention",
+                    "src/repro/kernels/flash_attention/kernel.py:104"),
+        _kernel_row(ctx, "decode_attention",
+                    "src/repro/kernels/decode_attention/kernel.py:75")]}))
     print(ctx["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": ctx["kind"], "count": ctx["count"]}}))

@@ -1,0 +1,13 @@
+"""granite-moe-1b-a400m [moe] — 32 experts, top-8 routing.
+
+24L d_model=1024 16H (kv=8) expert d_ff=512 vocab=49155.
+[hf:ibm-granite/granite-3.0-1b-a400m-base]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m", family="moe",
+    num_layers=24, d_model=1024, vocab_size=49155,
+    num_heads=16, num_kv_heads=8, head_dim=64,
+    num_experts=32, experts_per_token=8, expert_d_ff=512,
+    tie_embeddings=True,
+)

@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version. The ones on the main path: `gossip_combine.edge_aggregate`."""
+version: `gossip_combine.edge_aggregate` (the FL round's aggregation),
+`flash_attention.flash_attention` (prefill) and
+`decode_attention.decode_attention` (one-token decode)."""
 
 #: Every CUDA kernel of the package, by its source name in csrc/.
-KERNELS = ("edge_aggregate",)
+KERNELS = ("edge_aggregate", "flash_attention", "decode_attention")

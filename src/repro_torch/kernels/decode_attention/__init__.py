@@ -1,0 +1,7 @@
+"""Flash-decode (one token against a KV cache): CUDA kernel and plain
+version."""
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+__all__ = ["decode_attention", "decode_attention_ref"]

@@ -1,4 +1,5 @@
-"""The CUDA `edge_aggregate` kernel against its plain PyTorch version.
+"""The CUDA kernels (`edge_aggregate`, `flash_attention`,
+`decode_attention`) against their plain PyTorch versions.
 
 This file imports no jax, so it collects on a machine with only the
 port's dependencies. The tests marked ``cuda`` need an NVIDIA card and
@@ -80,3 +81,208 @@ def test_kernel_rejects_bad_inputs(cuda):
         ops.edge_aggregate(w, buf.t().contiguous().t(), coeffs, row_ptr, diag)
     with pytest.raises(ValueError):
         ops.edge_aggregate(w, buf.cpu(), coeffs, row_ptr, diag)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and decode_attention
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import \
+    decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    flash_attention_ref  # noqa: E402
+
+# (b, hq, hkv, s, hd, window, prefix, dtype): the reference kernel tests'
+# cases, the yi-9b prefill shape, and bf16 cases for the tensor-core route
+FA_CASES = [
+    (2, 4, 2, 64, 32, 0, 0, torch.float32),
+    (1, 8, 1, 128, 64, 0, 0, torch.float32),
+    (1, 8, 8, 96, 32, 0, 0, torch.float32),
+    (2, 4, 4, 96, 32, 16, 0, torch.float32),
+    (1, 2, 1, 64, 32, 0, 24, torch.float32),
+    (1, 4, 2, 64, 32, 8, 16, torch.float32),
+    (2, 4, 2, 64, 64, 0, 0, torch.bfloat16),
+    (1, 16, 4, 80, 128, 0, 0, torch.float32),
+    (1, 4, 2, 200, 128, 16, 40, torch.bfloat16),
+    (2, 6, 2, 80, 64, 0, 0, torch.bfloat16),
+    (1, 1, 1, 256, 128, 8, 0, torch.bfloat16),
+    (4, 32, 4, 2048, 128, 0, 0, torch.bfloat16),
+    (1, 4, 2, 72, 256, 0, 0, torch.float32),      # hd=256 (paligemma)
+    (1, 4, 2, 72, 256, 8, 16, torch.bfloat16),    # hd=256 on the CUDA cores
+]
+DEC_CASES = [
+    (2, 4, 2, 128, 32, torch.float32),
+    (1, 8, 1, 256, 64, torch.float32),
+    (2, 16, 4, 200, 128, torch.float32),
+    (1, 4, 4, 96, 32, torch.bfloat16),
+    (8, 32, 4, 4096, 128, torch.bfloat16),
+    (2, 8, 2, 300, 256, torch.bfloat16),          # hd=256
+]
+
+
+def _tol(dtype):
+    """The reference kernel tests' tolerances (test_kernels._tol)."""
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=5e-4, atol=5e-4)
+
+
+def _fa_plain(q, k, v, window=0, prefix=0):
+    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), window=window,
+                               prefix=prefix).transpose(1, 2)
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def test_attention_ops_on_cpu_launch_nothing():
+    gen = torch.Generator().manual_seed(0)
+    q, k = _randn(gen, (1, 16, 4, 32), torch.float32, "cpu"), \
+        _randn(gen, (1, 16, 2, 32), torch.float32, "cpu")
+    before = (fa_ops.flash_attention.launches,
+              dec_ops.decode_attention.launches)
+    torch.testing.assert_close(fa_ops.flash_attention(q, k, k),
+                               _fa_plain(q, k, k), rtol=0, atol=0)
+    lengths = torch.tensor([5])
+    torch.testing.assert_close(
+        dec_ops.decode_attention(q[:, 0], k, k, lengths),
+        decode_attention_ref(q[:, 0], k.transpose(1, 2), k.transpose(1, 2),
+                             lengths), rtol=0, atol=0)
+    assert (fa_ops.flash_attention.launches,
+            dec_ops.decode_attention.launches) == before
+
+
+def test_tensor_core_route_choice():
+    q = torch.zeros(1, 8, 4, 128, dtype=torch.bfloat16)
+    assert fa_ops.tensor_core_route(q, q, q)
+    assert not fa_ops.tensor_core_route(q.float(), q.float(), q.float())
+    wide = torch.zeros(1, 8, 4, 132, dtype=torch.bfloat16)[..., :128]
+    assert not fa_ops.tensor_core_route(wide, q, q)  # rows off 16 bytes
+    hd256 = torch.zeros(1, 8, 4, 256, dtype=torch.bfloat16)
+    assert not fa_ops.tensor_core_route(hd256, hd256, hd256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_CASES, ids=[str(c) for c in FA_CASES])
+def test_flash_kernel_matches_plain_version(cuda, case):
+    b, hq, hkv, s, hd, win, pre, dt = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(gen, (b, s, h, hd), dt, cuda) for h in (hq, hkv, hkv))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, window=win, prefix=pre)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    torch.testing.assert_close(out.float(),
+                               _fa_plain(q, k, v, win, pre).float(),
+                               **_tol(dt))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_cuda_core_route_for_unaligned_bf16(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn(gen, (2, 70, 4, 68), torch.bfloat16, cuda)[..., :64]
+    k, v = (_randn(gen, (2, 70, 2, 64), torch.bfloat16, cuda)
+            for _ in range(2))
+    assert not fa_ops.tensor_core_route(q, k, v)
+    out = fa_ops.flash_attention(q, k, v, window=9)
+    torch.testing.assert_close(out.float(), _fa_plain(q, k, v, 9).float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DEC_CASES, ids=[str(c) for c in DEC_CASES])
+def test_decode_kernel_matches_plain_version(cuda, case):
+    b, hq, hkv, s, hd, dt = case
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, (b, hq, hd), dt, cuda)
+    k, v = (_randn(gen, (b, s, hkv, hd), dt, cuda) for _ in range(2))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=cuda)
+    before = dec_ops.decode_attention.launches
+    out = dec_ops.decode_attention(q, k, v, lengths)          # on the card
+    out_host = dec_ops.decode_attention(q, k, v, lengths.cpu())  # on host
+    torch.cuda.synchronize()
+    assert dec_ops.decode_attention.launches == before + 2
+    torch.testing.assert_close(out, out_host, rtol=0, atol=0)
+    plain = decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                 lengths)
+    torch.testing.assert_close(out.float(), plain.float(), **_tol(dt))
+    # rows at or past lengths are never read
+    past = (torch.arange(s, device=cuda)[None, :, None, None]
+            >= lengths[:, None, None, None])
+    nan_k, nan_v = (torch.where(past, float("nan"), x) for x in (k, v))
+    torch.testing.assert_close(
+        dec_ops.decode_attention(q, nan_k, nan_v, lengths), out, rtol=0,
+        atol=0)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_reads_lengths_dev(cuda):
+    """Lengths handed on the card as well are read in place and give the
+    same output as lengths copied from the host."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, (2, 8, 64), torch.bfloat16, cuda)
+    k, v = (_randn(gen, (2, 300, 2, 64), torch.bfloat16, cuda)
+            for _ in range(2))
+    lengths = torch.tensor([7, 300], dtype=torch.int32)
+    out = dec_ops.decode_attention(q, k, v, lengths)
+    torch.testing.assert_close(
+        dec_ops.decode_attention(q, k, v, lengths,
+                                 lengths_dev=lengths.to(cuda)),
+        out, rtol=0, atol=0)
+    for bad in (lengths.to(cuda).long(), lengths, lengths.to(cuda)[:1]):
+        with pytest.raises(ValueError, match="lengths_dev"):
+            dec_ops.decode_attention(q, k, v, lengths, lengths_dev=bad)
+
+
+@pytest.mark.cuda
+def test_serve_step_launches_the_decode_kernel(cuda):
+    """Reduced yi-9b on the card: `make_serve_step` launches the decode
+    kernel once per layer per step and matches impl="reference"."""
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as tf
+
+    cfg = reduce(get_config("yi_9b"))
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    b, steps = 3, 6
+    toks = torch.randint(0, cfg.vocab_size, (b, steps), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    states = [tf.init_decode_state(cfg, b, 16, dtype=torch.float32,
+                                   device=cuda) for _ in range(2)]
+    for st in states:
+        st.position = torch.tensor([0, 5, 2])
+    serve = make_serve_step(cfg)
+    for t in range(steps):
+        before = dec_ops.decode_attention.launches
+        got, states[0] = serve(params, toks[:, t:t + 1], states[0])
+        assert dec_ops.decode_attention.launches == before + cfg.num_layers
+        want, states[1] = tf.decode_step(params, cfg, toks[:, t:t + 1],
+                                         states[1], impl="reference")
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_reject_bad_inputs(cuda):
+    q = torch.zeros(1, 8, 4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, q, q)
+    q32 = q.float()
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q32, q32.cpu(), q32)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(torch.zeros(1, 8, 4, 48, device=cuda),
+                               torch.zeros(1, 8, 4, 48, device=cuda),
+                               torch.zeros(1, 8, 4, 48, device=cuda))
+    cache = torch.zeros(1, 16, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="lengths"):
+        dec_ops.decode_attention(q32[:, 0], cache, cache,
+                                 torch.tensor([0], device=cuda))
+    with pytest.raises(ValueError, match="aligned"):
+        dec_ops.decode_attention(
+            q32[:, 0], torch.zeros(1, 16, 4, 66, device=cuda)[..., :64],
+            cache, torch.tensor([3]))
