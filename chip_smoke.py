@@ -51,7 +51,35 @@ Phases, each printing one JSON line:
    prefill path; then `decode_attention` on the run's own caches (8,
    2048, 4, 128) at the schedule's lengths against its plain version
    (bf16 and fp32) and timed there, which sets its `kernels` row; ms per
-   step, tokens/s beside the weights' floor, and a profile.
+   step, tokens/s beside the weights' floor, and a profile;
+10. ssd_scan: the kernel against its plain PyTorch version (fp32, as the
+   op runs it on the CPU, cast to the input type) on the reference kernel
+   tests' cases, chunks that are not powers of two and the two prefill
+   shapes, mamba2-370m (4, 2048, 32, 64, n 128) and zamba2-1.2b (4, 2048,
+   64, 64, n 64), bf16, with x, B and C strided as the model hands them,
+   within `_tol`; at the prefill shapes also per row against the fp32
+   plain version (FP32_ROW_REL_TOL) and timed beside the plain version
+   and the bound (no PyTorch call computes the scan: no library time);
+11. ssm_prefill: mamba2-370m at full width and depth, bf16, random
+   weights from seed 0, `make_prefill_step` on 4 prompts of 2048 tokens:
+   48 `ssd_scan` launches, logits against impl="reference" on the same
+   weights in fp32 and in bf16 (SSM_LOGITS_REL_TOL), ms per prefill,
+   tokens/s, a profile, and the kernel on the live scan inputs of layers
+   0 and 47;
+12. ssm_decode: 8 slots fed prompts of 16..128 tokens token by token at
+   per-slot positions through `make_serve_step`, then 32 greedy tokens;
+   no hand-written kernel runs (the Mamba2 decode step is plain PyTorch,
+   checked by the launch counts); each slot's logits at its last prompt
+   token against the prefill step on that prompt (SSM_LOGITS_REL_TOL);
+   ms per step, tokens/s and a profile;
+13. hybrid_prefill: the same for zamba2-1.2b (38 Mamba2 layers, the
+   shared attention block after every 6): 38 `ssd_scan` and 6
+   `flash_attention` launches per prefill;
+14. hybrid_decode: the same as 12 for zamba2-1.2b, with 6
+   `decode_attention` launches per step, logits held against a
+   decode_step(impl="reference") run fed the same tokens, and
+   `decode_attention` on the run's own shared-block caches (8, 2048, 32,
+   64) against its plain version.
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Any
@@ -362,6 +390,7 @@ FA_CASES = [
     (2, 6, 2, 80, 64, 0, 0, "bfloat16"),      # group of 3
     (1, 8, 1, 130, 32, 0, 0, "bfloat16"),     # MQA, hd=32
     (1, 1, 1, 256, 128, 8, 0, "bfloat16"),    # rows masked over whole tiles
+    (4, 32, 32, 2048, 64, 0, 0, "bfloat16"),  # zamba2's shared block
 ]
 FA_MAIN = (4, 32, 4, 2048, 128, 0, 0, "bfloat16")   # yi-9b prefill
 # decode_attention cases: (b, hq, hkv, s, hd, dtype)
@@ -370,6 +399,7 @@ DEC_CASES = [
     (1, 8, 1, 256, 64, "float32"),    # MQA
     (2, 16, 4, 200, 128, "float32"),  # ragged blocks
     (1, 4, 4, 96, 32, "bfloat16"),    # MHA bf16
+    (8, 32, 32, 2048, 64, "bfloat16"),  # zamba2's shared block, 8 slots
 ]
 DEC_MAIN = (8, 32, 4, 4096, 128, "bfloat16")        # yi-9b decode, 8 slots
 
@@ -391,13 +421,15 @@ def _compare(torch, got, want, dtype: str, what: str) -> float:
     return err
 
 
-#: Largest per-row relative L2 distance (a row: one query's hd outputs)
-#: allowed between a bf16 kernel's output and its plain version run in
-#: fp32 on the same bf16 inputs, at the main path's shapes: about three
-#: times the largest reading on an H100 (0.0032 and 0.0020, PERF.md).
-#: Dropping one key tile of a row of n keys moves it by about
-#: sqrt(tile / n): 0.18 for 64 of 2,048.
-FP32_ROW_REL_TOL = {"flash_attention": 1e-2, "decode_attention": 6e-3}
+#: Largest per-row relative L2 distance (a row: one query's hd outputs,
+#: or one (token, head)'s p outputs of the SSD scan) allowed between a
+#: bf16 kernel's output and its plain version run in fp32 on the same
+#: bf16 inputs, at the main path's shapes: about three times the largest
+#: reading on an H100 (0.0032, 0.0020 and 0.0033, PERF.md). Dropping one
+#: key tile of a row of n keys moves it by about sqrt(tile / n): 0.18 for
+#: 64 of 2,048; the bf16 output's own rounding alone gives about 0.002.
+FP32_ROW_REL_TOL = {"flash_attention": 1e-2, "decode_attention": 6e-3,
+                    "ssd_scan": 1e-2}
 
 
 def _hold_fp32(torch, got, want32, kernel: str, what: str) -> dict:
@@ -773,7 +805,8 @@ def phase_llm_decode(torch, ctx):
         ctx["launches"]["decode_attention"] = launches
         # the kernel against its plain version on the live caches at the
         # schedule's lengths (these launches are not the path's)
-        live = _decode_live_check(torch, ctx, cfg, st_k, lens_at)
+        live = _decode_live_check(torch, ctx, cfg, st_k.caches["kv"][0],
+                                  lens_at)
         # a few more generating steps, profiled
         holder = {"state": st_k,
                   "tokens": torch.tensor([o[-1] for o in out],
@@ -820,15 +853,15 @@ def phase_llm_decode(torch, ctx):
     torch.cuda.empty_cache()
 
 
-def _decode_live_check(torch, ctx, cfg, state, lens_at) -> dict:
-    """`decode_attention` on the decode run's own caches (8, 2048, 4, 128)
-    of the first and last layers, at the lengths the schedule gave an
-    early step, the last prompt token and the last generating step,
-    against its plain version (bf16, `_tol`) and the plain version in
-    fp32; then its times at the last step's lengths, which set the
-    kernel's row."""
+def _decode_live_check(torch, ctx, cfg, kv, lens_at, *, label="layer",
+                       row=True) -> dict:
+    """`decode_attention` on a decode run's own stacked caches ``kv``
+    ((L, 8, 2048, Hkv, hd)) of the first and last entries, at the lengths
+    the schedule gave an early step, the last prompt token and the last
+    generating step, against its plain version (bf16, `_tol`) and the
+    plain version in fp32; then its times at the last step's lengths,
+    which set the kernel's row when ``row``."""
     from repro_torch.kernels.decode_attention import ops
-    kv = state.caches["kv"][0]
     gen = torch.Generator(device="cuda").manual_seed(5)
     b = kv["k"].shape[1]
 
@@ -837,13 +870,13 @@ def _decode_live_check(torch, ctx, cfg, state, lens_at) -> dict:
                            device="cuda").to(kv["k"].dtype)
 
     errs, fp32 = {}, {}
-    for layer in (0, cfg.num_layers - 1):
+    for layer in (0, kv["k"].shape[0] - 1):
         kc, vc = kv["k"][layer], kv["v"][layer]
         for name, lens in lens_at.items():
             q, lens_dev = query(), lens.to("cuda")
             got = ops.decode_attention(q, kc, vc, lens, lengths_dev=lens_dev)
-            what = f"decode_attention, layer {layer}, {name} lengths"
-            key = f"layer {layer}, {name}"
+            what = f"decode_attention, {label} {layer}, {name} lengths"
+            key = f"{label} {layer}, {name}"
             errs[key] = _compare(torch, got, _dec_plain(q, kc, vc, lens_dev),
                                  "bfloat16", what)
             fp32[key] = _hold_fp32(
@@ -851,6 +884,9 @@ def _decode_live_check(torch, ctx, cfg, state, lens_at) -> dict:
                                        lens_dev), "decode_attention", what)
     timing = _decode_timing(torch, ctx, query(), kv["k"][0], kv["v"][0],
                             lens_at["generating"])
+    if not row:
+        return dict(lengths={k: v.tolist() for k, v in lens_at.items()},
+                    max_abs_diff=errs, vs_fp32_plain=fp32, **timing)
     ctx["decode_attention"] = dict(
         max_abs_err=max(list(errs.values())
                         + list(ctx["decode_attention_errs"].values())),
@@ -859,6 +895,449 @@ def _decode_live_check(torch, ctx, cfg, state, lens_at) -> dict:
         library_ms=timing["library_ms"])
     return dict(lengths={k: v.tolist() for k, v in lens_at.items()},
                 max_abs_diff=errs, vs_fp32_plain=fp32, **timing)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan and the ssm / hybrid serving forward (mamba2-370m, zamba2-1.2b)
+# ---------------------------------------------------------------------------
+
+# ssd_scan cases: (b, s, h, p, n, chunk, dtype): the reference kernel
+# tests' SSD_CASES, chunks that are not powers of two (100 over three
+# chunks; 256 on 333 tokens, a padded last chunk), then the prefill
+# shapes of the two models, at which the kernel is also held against the
+# fp32 plain version and timed.
+SSD_CASES = [
+    (2, 32, 3, 8, 16, 8, "float32"),
+    (1, 64, 2, 16, 32, 16, "float32"),
+    (2, 48, 4, 8, 16, 16, "float32"),
+    (1, 40, 2, 8, 16, 16, "float32"),      # padding path (40 % 16 != 0)
+    (1, 64, 2, 64, 128, 32, "float32"),    # production-ish dims
+    (2, 32, 2, 8, 16, 8, "bfloat16"),
+    (2, 300, 3, 64, 64, 100, "bfloat16"),  # chunk 100, three chunks
+    (1, 333, 2, 16, 32, 256, "float32"),   # padded last chunk
+]
+SSD_MAIN = {"mamba2-370m": (4, 2048, 32, 64, 128, 256, "bfloat16"),
+            "zamba2-1.2b": (4, 2048, 64, 64, 64, 256, "bfloat16")}
+SSM_ARCHS = {"ssm": "mamba2_370m", "hybrid": "zamba2_1p2b"}
+#: Relative L2 distances allowed, about twice the largest reading on an
+#: H100 (PERF.md): between the ssm/hybrid kernel path's prefill logits
+#: and impl="reference" run on the same weights in fp32 ("fp32"; read
+#: 0.051 mamba2, 0.040 zamba2); between the kernel path's and
+#: impl="reference"'s in bf16 ("bf16_ref"; read 0.583 and 0.314: the
+#: reference path keeps dt, A, the cumsum and the state in bf16, and its
+#: own distance from the fp32 run, printed beside, is 0.582 and 0.312);
+#: between the decode path's logits at each slot's last prompt token and
+#: the prefill path's ("cross"; read up to 0.041 and 0.030).
+SSM_LOGITS_REL_TOL = {
+    "fp32": {"mamba2_370m": 0.1, "zamba2_1p2b": 0.1},
+    "bf16_ref": {"mamba2_370m": 1.0, "zamba2_1p2b": 0.6},
+    "cross": {"mamba2_370m": 0.08, "zamba2_1p2b": 0.08}}
+
+
+def _ssd_inputs(torch, case, gen):
+    """x, B and C as slices of one buffer, as the model's conv output
+    hands them; dt = softplus(normal), A = -exp(0.5 * normal)."""
+    import torch.nn.functional as F
+    b, s, h, p, n, _, dt = case
+    buf = torch.randn((b, s, h * p + 2 * n), generator=gen,
+                      device="cuda").to(getattr(torch, dt))
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    dtv = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device="cuda"))
+    return x, dtv, A, buf[..., h * p:h * p + n], buf[..., h * p + n:]
+
+
+def _ssd_plain(torch, x, dt, A, B, C, chunk):
+    """The kernel's plain version as the op runs it on the CPU: fp32, the
+    inputs padded by the chunk rule (fp32 result, not cast back)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    s = x.shape[1]
+    chunk = ops.chunk_for(s, chunk)
+    pad = (-s) % chunk
+    xs = [x.float(), dt.float(), B.float(), C.float()]
+    if pad:
+        xs = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in xs]
+    return ssd_scan_ref(xs[0], xs[1], A.float(), xs[2], xs[3],
+                        chunk=chunk)[:, :s]
+
+
+def _ssd_check(torch, x, dt, A, B, C, chunk, what, fp32=False) -> dict:
+    """The kernel against its plain version (`_tol` of x's type, after
+    the op's cast) and, with ``fp32``, per row against the fp32 plain
+    version."""
+    from repro_torch.kernels.ssd_scan import ops
+    got = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    want = _ssd_plain(torch, x, dt, A, B, C, chunk)
+    dtype = str(x.dtype).split(".")[-1]
+    out = dict(max_abs_diff=_compare(torch, got, want.to(got.dtype), dtype,
+                                     what))
+    if fp32:
+        out.update(_hold_fp32(torch, got, want, "ssd_scan", what))
+    return out
+
+
+def _ssd_timing(torch, ctx, x, dt, A, B, C, chunk) -> dict:
+    """Times of the kernel and its plain version by events, beside the
+    bound: each input read once and y written once, and the multiply-adds
+    the chunked scan needs (the causal half of C.B^T and of its product
+    with dt*x in every chunk; C @ state^T and the state update across
+    each chunk boundary), at the bf16 tensor-core peak. No single PyTorch
+    call computes the SSD scan, so there is no library time. Beside them,
+    the kernel's time as `device_ms` reads it from the profiler: on an
+    H100 that read about 0.6 of the events' time, while the prefill's
+    own profile, 48 launches, agrees with the events."""
+    from repro_torch.kernels.ssd_scan import ops
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    kernel_ms = cuda_ms(torch, lambda: ops.ssd_scan(x, dt, A, B, C,
+                                                    chunk=chunk), 10)
+    profiler_ms = device_ms(torch, lambda: ops.ssd_scan(x, dt, A, B, C,
+                                                        chunk=chunk), 10,
+                            name="ssd_scan")
+    plain_ms = cuda_ms(torch, lambda: _ssd_plain(torch, x, dt, A, B, C,
+                                                 chunk), 3, warmup=1)
+    q = ops.chunk_for(s, chunk)
+    nc = -(-s // q)
+    macs = b * h * (nc * q * (q + 1) // 2 * (n + p)
+                    + 2 * (nc - 1) * q * p * n)
+    flops = 2 * macs
+    es = x.element_size()
+    nbytes = 2 * b * s * h * p * es + 4 * b * s * h + 4 * h \
+        + 2 * b * s * n * es
+    bw, fp32_rate, rate_key = card_rates(ctx["kind"])
+    peak = bf16_peak(ctx["kind"])
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    return dict(
+        shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=q,
+                   dtype=str(x.dtype).split(".")[-1]),
+        kernel_ms=kernel_ms, kernel_ms_profiler=profiler_ms,
+        plain_ms=plain_ms, library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes, flops=flops, fp32_cuda_core_ms=flops / fp32_rate * 1e3,
+        rates=dict(card=rate_key, hbm_bytes_per_s=bw, bf16_flop_per_s=peak,
+                   fp32_flop_per_s=fp32_rate),
+        achieved_tflop_per_s=flops / kernel_ms / 1e9)
+
+
+def phase_ssd_scan(torch, ctx):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs, fp32, timing = {}, {}, {}
+    for case in SSD_CASES:
+        x, dt, A, B, C = _ssd_inputs(torch, case, gen)
+        errs[str(case)] = _ssd_check(torch, x, dt, A, B, C, case[5],
+                                     f"ssd_scan {case}")["max_abs_diff"]
+    for name, case in SSD_MAIN.items():
+        x, dt, A, B, C = _ssd_inputs(torch, case, gen)
+        res = _ssd_check(torch, x, dt, A, B, C, case[5], f"ssd_scan {case}",
+                         fp32=True)
+        errs[str(case)] = res.pop("max_abs_diff")
+        fp32[name] = res
+        timing[name] = _ssd_timing(torch, ctx, x, dt, A, B, C, case[5])
+        del x, dt, A, B, C
+    m = timing["mamba2-370m"]
+    ctx["ssd_scan"] = dict(
+        max_abs_err=max(errs.values()), ms=m["kernel_ms"],
+        plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+        bound_by=m["bound_by"], library_ms=None)
+    ctx["ssd_scan_errs"] = errs
+    emit(phase="ssd_scan", ok=True, max_abs_diff=errs, vs_fp32_plain=fp32,
+         fp32_row_rel_tol=FP32_ROW_REL_TOL["ssd_scan"], timing=timing,
+         library="none: no single PyTorch call computes the SSD scan")
+    torch.cuda.empty_cache()
+
+
+def _ssm_model(torch, ctx, arch):
+    """The model's config and weights (seed 0, on the card), made once
+    per arch; the previous arch's weights are dropped first."""
+    held = ctx.get("ssm_model")
+    if held is None or held[0] != arch:
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as tf
+        ctx.pop("ssm_model", None)
+        del held
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg,
+                                torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        ctx["ssm_model"] = (arch, cfg, params, time.perf_counter() - t0)
+    return ctx["ssm_model"][1:]
+
+
+def _fp32_params(params):
+    """The same weights in fp32 (bf16 -> fp32 is exact)."""
+    if isinstance(params, dict):
+        return {k: _fp32_params(v) for k, v in params.items()}
+    return params.float()
+
+
+def _ssd_live_check(torch, cfg, params, tokens, layers) -> dict:
+    """`ssd_scan` on the live scan inputs of ``layers`` (the prefill's own
+    activations, walked layer by layer as the forward does) against its
+    plain version in bf16 and per row in fp32."""
+    from repro_torch.models import mamba2, transformer as tf
+    from repro_torch.models.layers import embed, rmsnorm
+    out = {}
+    x = embed(params["embed"], tokens)
+    apps = tf.num_shared_attn_apps(cfg)
+    for i in range(cfg.num_layers):
+        bp = tf._layer(params["blocks"], i)
+        if i in layers:
+            _, xs = mamba2.scan_inputs(
+                bp["mamba"], cfg, rmsnorm(bp["ln"], x, cfg.norm_eps))
+            out[f"layer {i}"] = _ssd_check(
+                torch, *xs, cfg.ssm_chunk, f"ssd_scan, {cfg.name} layer {i}",
+                fp32=True)
+            del xs
+        x = tf._mamba_block(bp, cfg, x, impl="kernel")
+        if apps and (i + 1) % cfg.attn_every == 0 \
+                and (i + 1) // cfg.attn_every <= apps:
+            x = tf._attn_mlp_block(params["shared_attn"], cfg, x,
+                                   window=cfg.sliding_window, prefix=0,
+                                   impl="kernel")
+    return out
+
+
+def _ssm_prefill(torch, ctx, arch, phase):
+    """The prefill step on 4 prompts of 2048 tokens: `ssd_scan` once per
+    Mamba2 layer and `flash_attention` once per application of the shared
+    block, logits against impl="reference", times and a profile, and the
+    kernel on the live inputs of the first and last layers."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+
+    cfg, params, init_s = _ssm_model(torch, ctx, arch)
+    b, s = PREFILL_SHAPE
+    rng = np.random.default_rng(7)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (b, s)), device="cuda")}
+    step = make_prefill_step(cfg)
+    want = {"ssd_scan": cfg.num_layers,
+            "flash_attention": tf.num_shared_attn_apps(cfg)}
+    with torch.inference_mode():
+        ssd.ssd_scan.launches = 0
+        fa.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {"ssd_scan": ssd.ssd_scan.launches,
+                    "flash_attention": fa.flash_attention.launches}
+        if launches != want:
+            raise AssertionError(f"{cfg.name} prefill launched {launches}, "
+                                 f"not {want}")
+        if tuple(logits.shape) != (b, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError("prefill logits are not finite of shape "
+                                 f"({b}, {cfg.vocab_size})")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        profile = profile_window(torch, lambda: step(params, batch), 1,
+                                 min(times) * 1e3)
+        ref_step = make_prefill_step(cfg, impl="reference")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ref_step(params, batch)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        torch.backends.cuda.matmul.allow_tf32 = False    # full fp32 GEMMs
+        ref32 = ref_step(_fp32_params(params), batch)
+        live = _ssd_live_check(torch, cfg, params, batch["tokens"],
+                               (0, cfg.num_layers - 1))
+    rels = dict(fp32=_rel_l2(logits, ref32), bf16_ref=_rel_l2(logits, ref),
+                bf16_ref_vs_fp32=_rel_l2(ref, ref32))
+    for key in ("fp32", "bf16_ref"):
+        if rels[key] > SSM_LOGITS_REL_TOL[key][arch]:
+            raise AssertionError(
+                f"{cfg.name} prefill logits: kernel path vs impl=reference "
+                f"({key}) relative L2 {rels[key]} > "
+                f"{SSM_LOGITS_REL_TOL[key][arch]}")
+    torch.cuda.empty_cache()
+    ms = min(times) * 1e3
+    emit(phase=phase, ok=True, arch=cfg.name, layers=cfg.num_layers,
+         shared_attn_apps=want["flash_attention"], params=cfg.param_count(),
+         param_bytes=_param_bytes(params), init_s=init_s, batch=b, seq=s,
+         launches=launches, first_call_s=first_s, ms_per_prefill=ms,
+         ms_runs=[t * 1e3 for t in times], tokens_per_s=b * s / (ms / 1e3),
+         reference_ms=ref_s * 1e3, logits_rel_l2=rels,
+         logits_max_abs_diff_vs_fp32=float(
+             (logits.float() - ref32.float()).abs().max()),
+         logits_abs_max=float(ref32.float().abs().max()),
+         argmax_equal_vs_fp32=int((logits.argmax(-1) == ref32.argmax(-1))
+                                  .sum()),
+         rel_tol={k: v[arch] for k, v in SSM_LOGITS_REL_TOL.items()
+                  if k != "cross"}, ssd_scan_live=live,
+         fp32_row_rel_tol=FP32_ROW_REL_TOL["ssd_scan"], profile=profile)
+    return launches
+
+
+def phase_ssm_prefill(torch, ctx):
+    launches = _ssm_prefill(torch, ctx, SSM_ARCHS["ssm"], "ssm_prefill")
+    ctx["launches"]["ssd_scan"] = launches["ssd_scan"]
+
+
+def phase_hybrid_prefill(torch, ctx):
+    _ssm_prefill(torch, ctx, SSM_ARCHS["hybrid"], "hybrid_prefill")
+
+
+def _ssm_decode(torch, ctx, arch, phase):
+    """Eight slots with prompts of 16..128 tokens fed token by token at
+    per-slot positions through `make_serve_step`, then 32 greedy tokens,
+    on the schedule of `phase_llm_decode`; a slot's recurrent state is
+    zeroed when its prompt starts, as the serving engine does when it
+    admits a request. Per step: the hand-written kernels launched
+    (`decode_attention` once per application of the shared block, none
+    for mamba2) and, with a shared block, the logits against a
+    decode_step(impl="reference") run fed the same tokens. Then each
+    slot's logits at its last prompt token against the prefill step on
+    that prompt."""
+    import numpy as np
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tf
+
+    cfg, params, _ = _ssm_model(torch, ctx, arch)
+    serve = make_serve_step(cfg)
+    apps = tf.num_shared_attn_apps(cfg)
+    nb = DECODE_SLOTS
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in DECODE_PROMPTS]
+    last = max(DECODE_PROMPTS) - 1
+    start = [last + 1 - n for n in DECODE_PROMPTS]
+    steps = last + DECODE_NEW
+    check_at = {20: "early", last: "last_prompt", steps - 1: "generating"}
+    lens_at = {}
+    states = [tf.init_decode_state(cfg, nb, DECODE_MAX_SEQ, device="cuda")
+              for _ in range(2 if apps else 1)]
+    out = [[] for _ in range(nb)]
+    rels, agree, step_s = [], 0, []
+
+    def counts():
+        return (ssd.ssd_scan.launches, fa.flash_attention.launches,
+                dec.decode_attention.launches)
+
+    with torch.inference_mode():
+        ssd.ssd_scan.launches = fa.flash_attention.launches = 0
+        dec.decode_attention.launches = 0
+        for t in range(steps):
+            pos = torch.tensor([max(0, t - start[i]) for i in range(nb)])
+            if t in check_at:
+                lens_at[check_at[t]] = torch.clamp(
+                    pos + 1, max=DECODE_MAX_SEQ).to(torch.int32)
+            for i in range(nb):
+                if t == start[i] > 0:
+                    for st in states:
+                        for c in st.caches["ssm"].values():
+                            c[:, i].zero_()
+            toks = [int(prompts[i][t - start[i]]) if start[i] <= t <= last
+                    else (out[i][-1] if t > last else 0) for i in range(nb)]
+            tokens = torch.tensor(toks, device="cuda")[:, None]
+            for st in states:
+                st.position = pos
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lk, states[0] = serve(params, tokens, states[0])
+            nxt = lk[:, 0].argmax(-1).cpu()
+            step_s.append(time.perf_counter() - t0)
+            moved = tuple(a - b for a, b in zip(counts(), before))
+            if moved != (0, 0, apps):
+                raise AssertionError(f"one decode step launched ssd_scan, "
+                                     f"flash_attention, decode_attention "
+                                     f"{moved} times, not (0, 0, {apps})")
+            active = [i for i in range(nb) if t >= start[i]]
+            if not torch.isfinite(lk[active]).all():
+                raise AssertionError(f"non-finite decode logits at step {t}")
+            if apps:
+                lr, states[1] = tf.decode_step(params, cfg, tokens,
+                                               states[1], impl="reference")
+                rels.append(_rel_l2(lk[active], lr[active]))
+                if t >= last:
+                    agree += int((nxt == lr[:, 0].argmax(-1).cpu()).sum())
+            if t == last:
+                at_last = lk[:, 0].float().clone()
+            if t >= last:
+                for i in range(nb):
+                    out[i].append(int(nxt[i]))
+        launches = counts()
+        live = (_decode_live_check(torch, ctx, cfg,
+                                   states[0].caches["shared_kv"], lens_at,
+                                   label="application", row=False)
+                if apps else None)
+        holder = {"state": states[0],
+                  "tokens": torch.tensor([o[-1] for o in out],
+                                         device="cuda")[:, None]}
+
+        def one_step():
+            lg, holder["state"] = serve(params, holder["tokens"],
+                                        holder["state"])
+            holder["tokens"] = lg[:, 0].argmax(-1, keepdim=True)
+            lg[:, 0].argmax(-1).cpu()
+
+        gen_ms = 1e3 * sum(step_s[last:]) / DECODE_NEW
+        profile = profile_window(torch, one_step, 4, gen_ms)
+        # each slot's last prompt token through the prefill path: chunks
+        # of the prompt's own length (16..128), most not powers of two
+        prefill = make_prefill_step(cfg)
+        cross = [_rel_l2(at_last[i], prefill(params, {"tokens": torch.as_tensor(
+            prompts[i], device="cuda")[None]})[0]) for i in range(nb)]
+    worst = max(rels) if rels else None
+    cross_tol = SSM_LOGITS_REL_TOL["cross"][arch]
+    if max(cross) > cross_tol or (worst is not None
+                                  and worst > LOGITS_REL_TOL):
+        raise AssertionError(f"{cfg.name} decode logits: decode vs prefill "
+                             f"relative L2 up to {max(cross)} (limit "
+                             f"{cross_tol}), kernel vs reference up to "
+                             f"{worst} (limit {LOGITS_REL_TOL})")
+    gen_s = step_s[last:]
+    emit(phase=phase, ok=True, arch=cfg.name, slots=nb,
+         max_seq=DECODE_MAX_SEQ, prompt_lengths=list(DECODE_PROMPTS),
+         new_tokens=DECODE_NEW, steps=steps,
+         hand_written_kernel_launches=dict(zip(
+             ("ssd_scan", "flash_attention", "decode_attention"), launches)),
+         hand_written_kernels=("decode_attention in the shared block" if apps
+                               else "none: the Mamba2 decode step is plain "
+                               "PyTorch"),
+         ms_per_step=1e3 * sum(step_s) / steps,
+         ms_per_step_median=1e3 * sorted(step_s)[steps // 2],
+         ms_per_step_generating=1e3 * sum(gen_s) / len(gen_s),
+         tokens_per_s=nb * steps / sum(step_s),
+         weight_floor_ms=_param_bytes(params) / card_rates(ctx["kind"])[0]
+         * 1e3,
+         decode_vs_prefill_rel_l2=cross, cross_rel_tol=cross_tol,
+         logits_rel_l2_max=worst,
+         logits_rel_l2_mean=sum(rels) / len(rels) if rels else None,
+         greedy_same_share=agree / (nb * DECODE_NEW) if apps else None,
+         rel_tol=LOGITS_REL_TOL if apps else None,
+         sample_tokens=out[nb - 1][:8], decode_attention_live=live,
+         profile=profile)
+    del states, holder
+
+
+def phase_ssm_decode(torch, ctx):
+    _ssm_decode(torch, ctx, SSM_ARCHS["ssm"], "ssm_decode")
+
+
+def phase_hybrid_decode(torch, ctx):
+    _ssm_decode(torch, ctx, SSM_ARCHS["hybrid"], "hybrid_decode")
+    ctx.pop("ssm_model", None)
+    torch.cuda.empty_cache()
 
 
 def profile_window(torch, fn, iters: int, unprofiled_ms: float) -> dict:
@@ -914,7 +1393,9 @@ def main() -> int:
     ctx: dict = {"launches": {}}
     phases = [phase_device, phase_build, phase_edge_aggregate, phase_run_fl,
               phase_cycle, phase_flash_attention, phase_decode_attention,
-              phase_llm_prefill, phase_llm_decode]
+              phase_llm_prefill, phase_llm_decode, phase_ssd_scan,
+              phase_ssm_prefill, phase_ssm_decode, phase_hybrid_prefill,
+              phase_hybrid_decode]
     for phase in phases:
         try:
             phase(torch, ctx)
@@ -929,7 +1410,9 @@ def main() -> int:
         _kernel_row(ctx, "flash_attention",
                     "src/repro/kernels/flash_attention/kernel.py:104"),
         _kernel_row(ctx, "decode_attention",
-                    "src/repro/kernels/decode_attention/kernel.py:75")]}))
+                    "src/repro/kernels/decode_attention/kernel.py:75"),
+        _kernel_row(ctx, "ssd_scan",
+                    "src/repro/kernels/ssd_scan/kernel.py:71")]}))
     print(ctx["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": ctx["kind"], "count": ctx["count"]}}))

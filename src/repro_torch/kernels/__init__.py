@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version: `gossip_combine.edge_aggregate` (the FL round's aggregation),
-`flash_attention.flash_attention` (prefill) and
-`decode_attention.decode_attention` (one-token decode)."""
+`flash_attention.flash_attention` (prefill),
+`decode_attention.decode_attention` (one-token decode) and
+`ssd_scan.ssd_scan` (the Mamba-2 prefill scan)."""
 
 #: Every CUDA kernel of the package, by its source name in csrc/.
-KERNELS = ("edge_aggregate", "flash_attention", "decode_attention")
+KERNELS = ("edge_aggregate", "flash_attention", "decode_attention",
+           "ssd_scan")

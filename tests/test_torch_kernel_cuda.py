@@ -1,5 +1,5 @@
 """The CUDA kernels (`edge_aggregate`, `flash_attention`,
-`decode_attention`) against their plain PyTorch versions.
+`decode_attention`, `ssd_scan`) against their plain PyTorch versions.
 
 This file imports no jax, so it collects on a machine with only the
 port's dependencies. The tests marked ``cuda`` need an NVIDIA card and
@@ -286,3 +286,162 @@ def test_attention_kernels_reject_bad_inputs(cuda):
         dec_ops.decode_attention(
             q32[:, 0], torch.zeros(1, 16, 4, 66, device=cuda)[..., :64],
             cache, torch.tensor([3]))
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+
+# (b, s, h, p, n, chunk, dtype): the reference kernel tests' cases, chunks
+# that are not powers of two (100: a 300-token prompt over three chunks;
+# 256 on 333 tokens: a padded last chunk), and the mamba2-370m and
+# zamba2-1.2b prefill shapes
+SSD_CASES = [
+    (2, 32, 3, 8, 16, 8, torch.float32),
+    (1, 64, 2, 16, 32, 16, torch.float32),
+    (2, 48, 4, 8, 16, 16, torch.float32),
+    (1, 40, 2, 8, 16, 16, torch.float32),
+    (1, 64, 2, 64, 128, 32, torch.float32),
+    (2, 32, 2, 8, 16, 8, torch.bfloat16),
+    (2, 300, 3, 64, 64, 100, torch.bfloat16),
+    (1, 333, 2, 16, 32, 256, torch.float32),
+    (4, 2048, 32, 64, 128, 256, torch.bfloat16),
+    (4, 2048, 64, 64, 64, 256, torch.bfloat16),
+]
+
+
+def _ssd_inputs(case, device, seed=0, extra=0):
+    """x, B and C as slices of one buffer, as the model's conv output
+    hands them (``extra`` more columns make its rows odd-sized); dt =
+    softplus(normal), A = -exp(0.5 * normal)."""
+    b, s, h, p, n, _, dt = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    buf = _randn(gen, (b, s, h * p + 2 * n + extra), dt, device)
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    B, C = buf[..., h * p:h * p + n], buf[..., h * p + n:h * p + 2 * n]
+    dtv = F.softplus(torch.randn((b, s, h), generator=gen, device=device))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=device))
+    return x, dtv, A, B, C
+
+
+def _ssd_plain(x, dt, A, B, C, chunk):
+    """The plain version in fp32 on the inputs padded by the op's rule."""
+    s = x.shape[1]
+    chunk = ssd_ops.chunk_for(s, chunk)
+    pad = (-s) % chunk
+    xs = [x.float(), dt.float(), B.float(), C.float()]
+    if pad:
+        xs = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in xs]
+    return ssd_scan_ref(xs[0], xs[1], A.float(), xs[2], xs[3],
+                        chunk=chunk)[:, :s]
+
+
+def test_ssd_op_on_cpu_launches_nothing():
+    x, dt, A, B, C = _ssd_inputs(SSD_CASES[3], "cpu")
+    before = ssd_ops.ssd_scan.launches
+    torch.testing.assert_close(ssd_ops.ssd_scan(x, dt, A, B, C, chunk=16),
+                               _ssd_plain(x, dt, A, B, C, 16), rtol=0,
+                               atol=0)
+    assert ssd_ops.ssd_scan.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=[str(c) for c in SSD_CASES])
+def test_ssd_kernel_matches_plain_version(cuda, case):
+    x, dt, A, B, C = _ssd_inputs(case, cuda)
+    chunk, dtype = case[5], case[6]
+    before = ssd_ops.ssd_scan.launches
+    out = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(),
+                               _ssd_plain(x, dt, A, B, C, chunk),
+                               **_tol(dtype))
+    # the strided views read as their contiguous copies do
+    torch.testing.assert_close(
+        ssd_ops.ssd_scan(x.contiguous(), dt, A, B.contiguous(),
+                         C.contiguous(), chunk=chunk), out, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_unaligned_rows(cuda, dtype):
+    """Rows of an odd number of elements cannot be read 16 bytes at a
+    time; the kernel's element-wise loads give the same result."""
+    case = (2, 300, 3, 16, 32, 100, dtype)
+    x, dt, A, B, C = _ssd_inputs(case, cuda, seed=4, extra=1)
+    assert x.stride(1) % 2 == 1
+    out = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=100)
+    torch.testing.assert_close(out.float(),
+                               _ssd_plain(x, dt, A, B, C, 100), **_tol(dtype))
+    torch.testing.assert_close(
+        ssd_ops.ssd_scan(x.contiguous(), dt, A, B.contiguous(),
+                         C.contiguous(), chunk=100), out, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_bad_inputs(cuda):
+    x, dt, A, B, C = _ssd_inputs((1, 32, 2, 8, 16, 8, torch.float32), cuda)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(x.half(), dt, A, B.half(), C.half())
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(x, dt, A, B.to(torch.bfloat16), C)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_ops.ssd_scan(x[..., :6], dt, A, B, C)
+    with pytest.raises(ValueError, match="state size"):
+        ssd_ops.ssd_scan(x, dt, A, B[..., :12], C[..., :12])
+    with pytest.raises(ValueError, match="chunk 512"):
+        ssd_ops.ssd_scan(*_ssd_inputs((1, 512, 1, 8, 16, 512,
+                                       torch.float32), cuda), chunk=512)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(x, dt, A, B.transpose(1, 2).contiguous()
+                         .transpose(1, 2), C)
+    with pytest.raises(ValueError, match="on cpu"):
+        ssd_ops.ssd_scan(x, dt.cpu(), A, B, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_1p2b"])
+def test_ssm_prefill_and_serve_step_launch_the_kernels(cuda, arch):
+    """Reduced mamba2 / zamba2 on the card: the prefill step launches
+    `ssd_scan` once per layer (and, for zamba2, `flash_attention` once per
+    application of the shared block); the serve step launches
+    `decode_attention` once per application; both match impl="reference"
+    or the plain path."""
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tf
+
+    cfg = reduce(get_config(arch))
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    apps = tf.num_shared_attn_apps(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (3, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = (ssd_ops.ssd_scan.launches, fa_ops.flash_attention.launches)
+    got = make_prefill_step(cfg)(params, {"tokens": toks})
+    assert (ssd_ops.ssd_scan.launches - before[0],
+            fa_ops.flash_attention.launches - before[1]) == (cfg.num_layers,
+                                                             apps)
+    want = make_prefill_step(cfg, impl="reference")(params,
+                                                    {"tokens": toks[:, :32]})
+    torch.testing.assert_close(
+        make_prefill_step(cfg)(params, {"tokens": toks[:, :32]}), want,
+        rtol=5e-4, atol=5e-4)
+    assert torch.isfinite(got).all()
+    st = [tf.init_decode_state(cfg, 3, 16, dtype=torch.float32, device=cuda)
+          for _ in range(2)]
+    serve = make_serve_step(cfg)
+    for t in range(5):
+        before = dec_ops.decode_attention.launches
+        a, st[0] = serve(params, toks[:, t:t + 1], st[0])
+        assert dec_ops.decode_attention.launches == before + apps
+        b, st[1] = tf.decode_step(params, cfg, toks[:, t:t + 1], st[1],
+                                  impl="reference")
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4)
