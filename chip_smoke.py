@@ -79,7 +79,23 @@ Phases, each printing one JSON line:
    `decode_attention` launches per step, logits held against a
    decode_step(impl="reference") run fed the same tokens, and
    `decode_attention` on the run's own shared-block caches (8, 2048, 32,
-   64) against its plain version.
+   64) against its plain version;
+15. gossip_combine: the kernel against its plain version, bit for bit
+   (`torch.equal`), on the reference kernel tests' cases, T = 65537,
+   T = 0, bf16, and K = 1..6 at odd T with rows off the 16-byte grid,
+   and at the ring's shape (3, 368,226,304) fp32, where it is timed
+   beside the plain version, a cuBLAS GEMV (`coeffs @ weights`, a
+   yardstick the port never calls) and the bound;
+16. ring_gossip: `launch/fl8` on `StackedSilos(8)`, eight mamba2-370m
+   replicas at full width and depth (bf16, one seeded generator per
+   silo): one round per state (overlay, half, isolated) with its checks
+   (8 `gossip_combine` launches a round; 2, 1 and 0 replicas per silo
+   across the silo axis; fresh buffers bit-equal to the rolls; kernel
+   path bit-equal to the elementwise path; overlay against
+   `gossip_dense` with the ring's Metropolis matrix, within one bf16 ulp
+   of sum_j |A_ij w_j|; isolated reads only the stale buffers), then
+   RING_ROUNDS timed rounds per state (ms per round, bytes per round,
+   the kernel's share, peak memory) and a profile of an overlay round.
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Any
@@ -1340,6 +1356,269 @@ def phase_hybrid_decode(torch, ctx):
     torch.cuda.empty_cache()
 
 
+# gossip_combine cases: (K, T, dtype, offset). The reference kernel tests'
+# cases (tests/test_kernels.py), T = 65537, T = 0, bf16 at an odd width,
+# and K = 1..6 at odd T with the weights starting `offset` elements into
+# their buffer, so that rows lie off the 16-byte grid.
+GC_CASES = [(2, 1024, "float32", 0), (5, 4096, "float32", 0),
+            (8, 1000, "float32", 0), (3, 70000, "float32", 0),
+            (4, 4096, "bfloat16", 0), (3, 65537, "float32", 0),
+            (3, 65537, "bfloat16", 0), (2, 0, "float32", 0),
+            (8, 4099, "bfloat16", 0)] + [
+    (k, 4099 + 2 * k, dt, k % 4) for k in range(1, 7)
+    for dt in ("float32", "bfloat16")]
+#: The ring round's combine: self, left, right over mamba2-370m packed
+#: flat in fp32.
+GC_RING = (3, 368_226_304)
+
+
+def phase_gossip_combine(torch, ctx):
+    """The kernel against its plain version, bit for bit, on GC_CASES and
+    at the ring's shape, where it is timed beside the plain version, a
+    cuBLAS GEMV (`coeffs @ weights`, a yardstick the port never calls)
+    and the bound."""
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.kernels.gossip_combine.ref import gossip_combine_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {}
+
+    def check(w, a, what):
+        got = ops.gossip_combine(w, a)
+        want = gossip_combine_ref(w, a)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != w.dtype:
+            raise AssertionError(f"gossip_combine {what}: {got.shape} "
+                                 f"{got.dtype}, not {want.shape} {w.dtype}")
+        errs[what] = float((got.float() - want.float()).abs().max()) \
+            if got.numel() else 0.0
+        if not torch.equal(got, want):
+            raise AssertionError(f"gossip_combine {what}: kernel and plain "
+                                 f"version differ, max |diff| {errs[what]}")
+        return got
+
+    for case in GC_CASES:
+        k, t, dt, off = case
+        buf = torch.randn((k * t + off,), generator=gen, device="cuda")
+        w = buf.to(getattr(torch, dt))[off:].view(k, t)
+        a = torch.rand((k,), generator=gen, device="cuda")
+        check(w, a / a.sum(), str(case))
+        del buf, w
+
+    k, t = GC_RING
+    w = torch.randn((k, t), generator=gen, device="cuda")
+    a = torch.full((k,), 1.0 / 3.0, device="cuda")
+    got = check(w, a, f"ring {GC_RING}")
+    before = ops.gossip_combine.launches
+    kernel_ms = cuda_ms(torch, lambda: ops.gossip_combine(w, a), 20)
+    if ops.gossip_combine.launches != before + 23:
+        raise AssertionError("gossip_combine did not launch once per call")
+    plain_ms = cuda_ms(torch, lambda: gossip_combine_ref(w, a), 5, warmup=1)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    library_ms = cuda_ms(torch, lambda: a @ w, 20)
+    lib_diff = float((a @ w - got).abs().max())
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    del w, got
+    torch.cuda.empty_cache()
+
+    bw, fp32, rate_key = card_rates(ctx["kind"])
+    nbytes = (k + 1) * t * 4 + k * 4
+    flops = 2 * k * t
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / fp32 * 1e3
+    ctx["gossip_combine"] = dict(
+        max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms)
+    emit(phase="gossip_combine", ok=True, cases=len(errs),
+         max_abs_diff=errs, shape=dict(k=k, t=t, dtype="float32"),
+         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+         library="coeffs @ weights (cuBLAS GEMV, TF32 off)",
+         library_max_abs_diff=lib_diff, bound_ms=max(bytes_ms, ops_ms),
+         bytes=nbytes, flops=flops,
+         rates=dict(card=rate_key, hbm_bytes_per_s=bw, fp32_flop_per_s=fp32),
+         achieved_gb_per_s=nbytes / kernel_ms / 1e6)
+
+
+#: Rounds per state in the timed ring runs.
+RING_ROUNDS = 3
+
+
+def _leafwise(fn, *trees, path=""):
+    """``fn(path, *leaves)`` over the leaves of same-shaped nested dicts."""
+    if isinstance(trees[0], dict):
+        for k in sorted(trees[0]):
+            _leafwise(fn, *(t[k] for t in trees), path=f"{path}/{k}")
+    else:
+        fn(path, *trees)
+
+
+def _ring_checks(torch, cfg, axis, dev) -> dict:
+    """One round per state from seeded weights on ``dev``, and the checks
+    of `phase_ring_gossip`; raises on the first that fails."""
+    from repro_torch.fl import gossip
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.launch import fl8
+    from repro_torch.launch.mesh import tree_bytes, tree_leaves, tree_map
+
+    n = axis.size
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    params = fl8.init_silos(cfg, axis, dev)
+    bufs = gossip.init_ring_buffers(params)
+    rep = tree_bytes(params) // n
+    out = dict(replica_bytes=rep)
+
+    def round_(p, b, left, right, use_kernel=True):
+        ops.gossip_combine.launches = 0
+        axis.bytes_moved = 0
+        res = fl8.build_step(cfg, left, right, axis, use_kernel)(p, b)
+        sync()
+        want = n if use_kernel and dev.type == "cuda" else 0
+        if ops.gossip_combine.launches != want:
+            raise AssertionError(f"{ops.gossip_combine.launches} "
+                                 f"gossip_combine launches in a round on "
+                                 f"{n} silos, not {want}")
+        moved = (int(left) + int(right)) * n * rep
+        if axis.bytes_moved != moved:
+            raise AssertionError(f"{axis.bytes_moved} bytes crossed the "
+                                 f"silo axis, not {moved}")
+        return res
+
+    def equal(what):
+        def fn(name, a, b):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs")
+        return fn
+
+    # overlay: fresh buffers are the rolls; the elementwise path agrees
+    new, nb = round_(params, bufs, True, True)
+    del bufs
+    _leafwise(equal("overlay: left buffer vs roll(+1)"), nb["left"],
+              tree_map(lambda x: torch.roll(x, 1, 0), params))
+    _leafwise(equal("overlay: right buffer vs roll(-1)"), nb["right"],
+              tree_map(lambda x: torch.roll(x, -1, 0), params))
+    plain = round_(params, nb, True, True, use_kernel=False)[0]
+    _leafwise(equal("overlay: kernel path vs elementwise path"), new, plain)
+    del plain
+
+    # overlay against gossip_dense with the ring's Metropolis matrix:
+    # |dense - ring| <= eps * sum_j |A_ij| |w_j|, eps one bf16 ulp (2^-7)
+    # for bf16 leaves and 2^-20 for fp32 leaves (another summation order)
+    a = gossip.ring_matrix(n)
+    dense = gossip.gossip_dense(params, a, axis)
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+
+    def near(name, d, r, w):
+        key = str(w.dtype).split(".")[-1]
+        eps = 2.0 ** (-7 if key == "bfloat16" else -20)
+        for s in range(n):
+            mag = sum(float(a[s, j]) * w[j].float().abs()
+                      for j in range(n) if a[s, j] != 0)
+            diff = (d[s].float() - r[s].float()).abs()
+            if bool((diff > eps * mag).any()):
+                raise AssertionError(f"gossip_dense vs ring round: {name} "
+                                     f"silo {s}, max |diff| "
+                                     f"{float(diff.max())}")
+            worst[key] = max(worst[key], float(diff.max()))
+    _leafwise(near, dense, new, params)
+    out["dense_vs_ring_max_abs_diff"] = worst
+    del dense
+
+    # half: the right direction is weak, so the left buffer stays stale
+    # (here the rolls of the first weights) and the right one is fresh
+    params2, nb2 = round_(new, nb, True, False)
+    if nb2["left"] is not nb["left"]:
+        raise AssertionError("half: the left buffer was not kept")
+    _leafwise(equal("half: right buffer vs roll(-1)"), nb2["right"],
+              tree_map(lambda x: torch.roll(x, -1, 0), new))
+    del params2, nb2
+
+    # isolated: nothing crosses, the stale buffers (the rolls of the first
+    # weights, not of `new`) are read as they are
+    iso, nb3 = round_(new, nb, False, False)
+    if nb3["left"] is not nb["left"] or nb3["right"] is not nb["right"]:
+        raise AssertionError("isolated: the stale buffers were not kept")
+    third = torch.tensor(1.0 / 3.0, device=dev)
+
+    def by_hand(name, got, w, lb, rb):
+        want = (third * w.float() + third * lb.float()
+                + third * rb.float()).to(w.dtype)
+        equal("isolated: round vs the stale-buffer sum by hand")(
+            name, got, want)
+    _leafwise(by_hand, iso, new, nb["left"], nb["right"])
+    plain = round_(new, nb, False, False, use_kernel=False)[0]
+    _leafwise(equal("isolated: kernel path vs elementwise path"), iso, plain)
+    out["isolated_differs_from_fresh"] = not all(
+        torch.equal(x, torch.roll(y, 1, 0))
+        for x, y in zip(tree_leaves(nb["left"]), tree_leaves(new)))
+    if not out["isolated_differs_from_fresh"]:
+        raise AssertionError("isolated: stale buffers equal fresh ones, the "
+                             "check cannot tell them apart")
+    return out
+
+
+def phase_ring_gossip(torch, ctx):
+    """`launch/fl8` on `StackedSilos(8)`: eight mamba2-370m replicas at
+    full width and depth, bf16, each from its own seeded generator on the
+    card. First one round per state with its checks (`_ring_checks`):
+    8 `gossip_combine` launches a round, the silo-axis bytes (2, 1 and 0
+    replicas per silo), fresh buffers bit-equal to the rolls, the kernel
+    path bit-equal to the elementwise path, the overlay round against
+    `gossip_dense` with the ring's Metropolis matrix, and an isolated
+    round that moves nothing and reads the stale buffers. Then
+    `fl8.run_state` times RING_ROUNDS rounds of each state (launch counts
+    zeroed just before each, read just after), and one overlay round is
+    profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl import gossip
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.launch import fl8
+    from repro_torch.launch.mesh import StackedSilos
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # gossip_dense in fp32
+    cfg = get_config(fl8.ARCH)
+    axis = StackedSilos(fl8.N_SILOS)
+    checks = _ring_checks(torch, cfg, axis, dev)
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    torch.cuda.empty_cache()
+
+    states, launches = {}, 0
+    for name, left, right in fl8.STATES:
+        rep = fl8.run_state(name, fl8.ARCH, left, right, axis=axis,
+                            device=dev, rounds=RING_ROUNDS)
+        if rep["gossip_combine_launches"] != fl8.N_SILOS * RING_ROUNDS:
+            raise AssertionError(f"{name}: {rep['gossip_combine_launches']} "
+                                 f"gossip_combine launches in {RING_ROUNDS} "
+                                 f"rounds, not {fl8.N_SILOS} a round")
+        launches += rep["gossip_combine_launches"]
+        rep["kernel_share"] = (ctx["gossip_combine"]["ms"]
+                               * rep["launches_per_round"]
+                               / rep["ms_per_round"])
+        states[name] = rep
+        torch.cuda.empty_cache()
+    ctx["launches"]["gossip_combine"] = launches
+
+    params = fl8.init_silos(cfg, axis, dev)
+    bufs = gossip.init_ring_buffers(params)
+    step = fl8.build_step(cfg, True, True, axis)
+    profile = profile_window(torch, lambda: step(params, bufs), 2,
+                             states["overlay"]["ms_per_round"])
+    profile["gossip_combine_device_ms"] = sum(
+        k["device_ms"] for k in profile["top_kernels"]
+        if "gossip_combine" in k["kernel"])
+    del params, bufs, step
+    torch.cuda.empty_cache()
+    emit(phase="ring_gossip", ok=True, arch=cfg.name, silos=axis.size,
+         params_per_replica=cfg.param_count(), rounds=RING_ROUNDS,
+         checks=checks, states=states, profile_overlay=profile,
+         launches=launches, gossip_combine_ms=ctx["gossip_combine"]["ms"],
+         gossip_combine_bound_ms=ctx["gossip_combine"]["bound_ms"])
+
+
 def profile_window(torch, fn, iters: int, unprofiled_ms: float) -> dict:
     """Where ``iters`` calls of ``fn`` spend their time: device time by
     kernel name, the device's busy time per call and its idle share
@@ -1395,7 +1674,7 @@ def main() -> int:
               phase_cycle, phase_flash_attention, phase_decode_attention,
               phase_llm_prefill, phase_llm_decode, phase_ssd_scan,
               phase_ssm_prefill, phase_ssm_decode, phase_hybrid_prefill,
-              phase_hybrid_decode]
+              phase_hybrid_decode, phase_gossip_combine, phase_ring_gossip]
     for phase in phases:
         try:
             phase(torch, ctx)
@@ -1407,6 +1686,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         _kernel_row(ctx, "edge_aggregate",
                     "src/repro/kernels/gossip_combine/kernel.py:114"),
+        _kernel_row(ctx, "gossip_combine",
+                    "src/repro/kernels/gossip_combine/kernel.py:46"),
         _kernel_row(ctx, "flash_attention",
                     "src/repro/kernels/flash_attention/kernel.py:104"),
         _kernel_row(ctx, "decode_attention",

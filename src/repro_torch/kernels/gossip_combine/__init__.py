@@ -1,6 +1,11 @@
-"""CSR edge aggregation: CUDA kernel, plain version and CSR plan."""
+"""The gossip kernels: the fixed-K combine and the CSR edge aggregation,
+each a CUDA kernel beside its plain version, and the CSR plan."""
 
-from repro_torch.kernels.gossip_combine.ops import csr_sort, edge_aggregate
-from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+from repro_torch.kernels.gossip_combine.ops import (combine_pytree, csr_sort,
+                                                    edge_aggregate,
+                                                    gossip_combine)
+from repro_torch.kernels.gossip_combine.ref import (edge_aggregate_ref,
+                                                    gossip_combine_ref)
 
-__all__ = ["csr_sort", "edge_aggregate", "edge_aggregate_ref"]
+__all__ = ["combine_pytree", "csr_sort", "edge_aggregate",
+           "edge_aggregate_ref", "gossip_combine", "gossip_combine_ref"]

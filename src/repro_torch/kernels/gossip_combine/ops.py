@@ -1,10 +1,14 @@
-"""CSR edge aggregation: the host-side CSR plan and the dispatching op
+"""The gossip kernels' dispatching ops and the host-side CSR plan
 (counterpart of `repro.kernels.gossip_combine.ops`).
 
-`edge_aggregate` takes the plain PyTorch version (`ref.py`) for tensors
-on the CPU and launches the CUDA kernel (`csrc/edge_aggregate.cu`) for
-tensors on a card; it never falls back from one to the other.
-`edge_aggregate.launches` counts kernel launches.
+* `gossip_combine` -- the fixed-K stacked combine (`csrc/gossip_combine.cu`),
+  and `combine_pytree`, the same leaf by leaf over a stacked tree;
+* `edge_aggregate` -- the CSR edge aggregation (`csrc/edge_aggregate.cu`),
+  over the plan `csr_sort` builds.
+
+Each op takes the plain PyTorch version (`ref.py`) for tensors on the
+CPU and launches its CUDA kernel for tensors on a card; it never falls
+back from one to the other. `<op>.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -15,9 +19,84 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+from repro_torch.kernels.gossip_combine.ref import (edge_aggregate_ref,
+                                                    gossip_combine_ref)
 
 _KERNEL = "edge_aggregate"
+_COMBINE = "gossip_combine"
+#: Largest K the CUDA combine is compiled for.
+MAX_K = 8
+_COMBINE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _combine_library() -> ctypes.CDLL:
+    lib = build.load(_COMBINE)
+    fn = lib.gossip_combine
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
+                                               ctypes.c_int32, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_combine(weights: torch.Tensor, coeffs: torch.Tensor) -> None:
+    if coeffs.device != weights.device:
+        raise ValueError(f"gossip_combine: coeffs is on {coeffs.device}, "
+                         f"weights on {weights.device}")
+    if weights.dtype not in _COMBINE_DTYPES:
+        raise TypeError(f"gossip_combine: weights are {weights.dtype}, "
+                        f"needs float32 or bfloat16")
+    if coeffs.dtype != torch.float32:
+        raise TypeError(f"gossip_combine: coeffs are {coeffs.dtype}, "
+                        f"needs float32")
+    for name, x in (("weights", weights), ("coeffs", coeffs)):
+        if not x.is_contiguous():
+            raise ValueError(f"gossip_combine: {name} is not contiguous")
+    if weights.dim() != 2 or tuple(coeffs.shape) != weights.shape[:1]:
+        raise ValueError(f"gossip_combine: weights {tuple(weights.shape)} "
+                         f"and coeffs {tuple(coeffs.shape)} are not (K, T) "
+                         f"and (K,)")
+    if not 1 <= weights.shape[0] <= MAX_K:
+        raise ValueError(f"gossip_combine: K={weights.shape[0]} outside the "
+                         f"kernel's 1..{MAX_K}")
+
+
+def gossip_combine(weights: torch.Tensor,
+                   coeffs: torch.Tensor) -> torch.Tensor:
+    """weights (K, T) fp32 or bf16, coeffs (K,) fp32 -> (T,) in the
+    weights' type: out[t] = sum_k coeffs[k] * weights[k, t], accumulated
+    in fp32 in ascending k. T = 0 gives an empty output and no launch."""
+    if weights.device.type == "cpu":
+        return gossip_combine_ref(weights, coeffs)
+    if weights.device.type != "cuda":
+        raise ValueError(f"gossip_combine: no kernel for device "
+                         f"{weights.device}")
+    _check_combine(weights, coeffs)
+    k, t = weights.shape
+    out = torch.empty((t,), dtype=weights.dtype, device=weights.device)
+    if t == 0:
+        return out
+    with torch.cuda.device(weights.device):
+        rc = _combine_library().gossip_combine(
+            weights.data_ptr(), coeffs.data_ptr(), out.data_ptr(), k, t,
+            _COMBINE_DTYPES[weights.dtype],
+            torch.cuda.current_stream(weights.device).cuda_stream)
+    gossip_combine.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"gossip_combine: launch failed, cudaError {rc}")
+    return out
+
+
+gossip_combine.launches = 0
+
+
+def combine_pytree(stacked, coeffs: torch.Tensor):
+    """`gossip_combine` leaf by leaf over a (nested) dict whose every leaf
+    has the leading axis K; each leaf keeps its type (bf16 stays bf16)."""
+    if isinstance(stacked, dict):
+        return {key: combine_pytree(v, coeffs) for key, v in stacked.items()}
+    w = stacked.reshape(stacked.shape[0], -1)
+    return gossip_combine(w, coeffs).reshape(stacked.shape[1:])
 
 
 def csr_sort(dst: np.ndarray, num_nodes: int) -> tuple[np.ndarray, np.ndarray]:

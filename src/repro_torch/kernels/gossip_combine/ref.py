@@ -1,4 +1,12 @@
-"""Plain PyTorch version of the CSR edge aggregation.
+"""Plain PyTorch versions of the gossip kernels.
+
+`gossip_combine_ref`: out[t] = sum_k a[k] * w[k, t], the fixed-K stacked
+combine. The sum starts from zero and adds the products in ascending k,
+each product its own fp32 op and rounded before the add, then casts to
+the weights' type: the arithmetic the CUDA kernel pins with __fmul_rn /
+__fadd_rn, so the two agree bit for bit.
+
+`edge_aggregate_ref`, the CSR edge aggregation:
 
     out[i] = diag[i] * w[i] + sum_{row_ptr[i] <= e < row_ptr[i+1]} coeffs[e] * buf[e]
 
@@ -14,6 +22,17 @@ would add in a varying order.
 from __future__ import annotations
 
 import torch
+
+
+def gossip_combine_ref(weights: torch.Tensor,
+                       coeffs: torch.Tensor) -> torch.Tensor:
+    """weights (K, T), coeffs (K,) -> (T,) in the weights' type."""
+    a = coeffs.to(torch.float32)
+    acc = torch.zeros(weights.shape[1:], dtype=torch.float32,
+                      device=weights.device)
+    for k in range(weights.shape[0]):
+        acc = acc + a[k] * weights[k].to(torch.float32)
+    return acc.to(weights.dtype)
 
 
 def edge_aggregate_ref(w: torch.Tensor, buf: torch.Tensor,

@@ -1,1 +1,6 @@
-"""Step builders of the serving path (prefill, one-token decode)."""
+"""Entry points: the serving step builders (`steps`), the silo axis
+(`mesh`) and the eight-silo ring gossip round (`fl8`)."""
+
+from repro_torch.launch.mesh import GroupSilos, StackedSilos
+
+__all__ = ["GroupSilos", "StackedSilos"]

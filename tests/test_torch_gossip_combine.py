@@ -1,5 +1,19 @@
-"""The port's CSR edge aggregation against the reference's.
+"""The port's gossip kernels' plain versions against the reference's.
 
+`gossip_combine` (fixed-K stacked combine), on the reference kernel
+tests' cases (`tests/test_kernels.py`: K 2/5/8/3/4, T 1024/4096/1000/
+70000/4096, fp32 and bf16; T = 65537; T = 0):
+* The port's plain version multiplies, then adds, in ascending k, each
+  product rounded: bit-equal to that chain done in numpy.
+* The reference's oracle (an einsum) and its Pallas kernel in interpret
+  mode are XLA:CPU's FMA chain fma(a[K-1], w[K-1], ... fma(a1, w1,
+  a0*w0)): the port is held within 2^-22 * sum_k |a_k w_k| of both in
+  fp32 (about a third of the elements differ, by one or two ulps of that
+  magnitude) and one bf16 ulp (2^-7 of it) in bf16 (where the cases here
+  agree bit for bit).
+* `combine_pytree` on a nested tree, bf16 leaves staying bf16.
+
+`edge_aggregate` (CSR):
 * The plain version (`repro_torch.kernels.gossip_combine.ref`) is held
   bit for bit (`np.array_equal`) against `edge_aggregate_ref`, the
   reference's `segment_sum` oracle on XLA:CPU: both multiply, then add,
@@ -22,11 +36,98 @@ from repro.fl import dpasgd as rdpasgd  # noqa: E402
 from repro.kernels.gossip_combine import ops as rops  # noqa: E402
 from repro.kernels.gossip_combine.ref import \
     edge_aggregate_ref as redge_ref  # noqa: E402
+from repro.kernels.gossip_combine.ref import \
+    gossip_combine_ref as rcombine_ref  # noqa: E402
 from repro.networks.registry import get_network as rget  # noqa: E402
 
 from repro_torch.kernels.gossip_combine import ops as pops  # noqa: E402
 from repro_torch.kernels.gossip_combine.ref import \
     edge_aggregate_ref as pedge_ref  # noqa: E402
+from repro_torch.kernels.gossip_combine.ref import \
+    gossip_combine_ref as pcombine_ref  # noqa: E402
+from repro_torch.models.transformer import \
+    params_from_reference  # noqa: E402
+
+# (K, T, dtype): the reference kernel tests' cases, T = 65537 (a 1-column
+# tail past the reference's 65536 tile) and T = 0.
+COMBINE_CASES = [(2, 1024, "float32"), (5, 4096, "float32"),
+                 (8, 1000, "float32"), (3, 70000, "float32"),
+                 (4, 4096, "bfloat16"), (3, 65537, "float32"),
+                 (3, 65537, "bfloat16"), (2, 0, "float32"),
+                 (1, 300, "float32"), (6, 257, "bfloat16")]
+
+
+def _combine_inputs(k, t, dtype, seed=0):
+    """Weights rounded to ``dtype``, carried as the same bits to both."""
+    rng = np.random.default_rng(seed + 1000 * k + t)
+    w = np.asarray(jnp.asarray(rng.normal(size=(k, t)).astype(np.float32),
+                               dtype))
+    a = rng.dirichlet(np.ones(k)).astype(np.float32)
+    return w, a
+
+
+def _chain(w, a):
+    """The rounded chain in numpy fp32: ((0 + a0 w0) + a1 w1) + ..."""
+    acc = np.zeros(w.shape[1:], np.float32)
+    for k in range(len(a)):
+        acc = acc + a[k] * w[k].astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("k,t,dtype", COMBINE_CASES)
+def test_combine_plain_version_against_reference(k, t, dtype):
+    w, a = _combine_inputs(k, t, dtype)
+    before = pops.gossip_combine.launches
+    got = pops.gossip_combine(params_from_reference(w), torch.from_numpy(a))
+    assert pops.gossip_combine.launches == before  # CPU: plain version
+    assert got.shape == (t,) and got.dtype == getattr(torch, dtype)
+    torch.testing.assert_close(
+        got, pcombine_ref(params_from_reference(w), torch.from_numpy(a)),
+        rtol=0, atol=0)
+    got = got.float().numpy()
+    want = _chain(w, a)
+    if dtype == "bfloat16":
+        want = np.asarray(jnp.asarray(want).astype(jnp.bfloat16), np.float32)
+    np.testing.assert_array_equal(got, want)
+
+    mag = np.abs(a[:, None].astype(np.float64) * w.astype(np.float64)).sum(0)
+    bound = (2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -22) * mag
+    for ref in (rcombine_ref(jnp.asarray(w), jnp.asarray(a)),
+                rops.gossip_combine(jnp.asarray(w), jnp.asarray(a),
+                                    interpret=True)):
+        ref = np.asarray(ref, np.float32)
+        assert ref.shape == (t,)
+        assert (np.abs(got - ref) <= bound).all()
+
+
+def test_combine_pytree_nested_tree():
+    rng = np.random.default_rng(5)
+    tree = {"a": rng.normal(size=(3, 8, 16)).astype(np.float32),
+            "b": {"c": np.asarray(jnp.asarray(rng.normal(size=(3, 50)),
+                                              jnp.bfloat16)),
+                  "d": rng.normal(size=(3,)).astype(np.float32)}}
+    a = np.asarray([0.2, 0.3, 0.5], np.float32)
+    before = pops.gossip_combine.launches
+    got = pops.combine_pytree(params_from_reference(tree),
+                              torch.from_numpy(a))
+    assert pops.gossip_combine.launches == before
+    ref = rops.combine_pytree(jax.tree.map(jnp.asarray, tree),
+                              jnp.asarray(a), interpret=True)
+    assert got["b"]["c"].dtype == torch.bfloat16
+    assert got["b"]["d"].shape == ()
+    leaves = {("a",): tree["a"], ("b", "c"): tree["b"]["c"],
+              ("b", "d"): tree["b"]["d"]}
+    for path, w in leaves.items():
+        g, r = got, ref
+        for key in path:
+            g, r = g[key], r[key]
+        assert tuple(g.shape) == w.shape[1:]
+        chain = _chain(w.reshape(3, -1), a).astype(w.dtype)
+        np.testing.assert_array_equal(g.float().numpy().reshape(-1),
+                                      chain.astype(np.float32))
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(r, np.float32),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def _case(seed, n, e2, t, isolated=True):

@@ -1,5 +1,6 @@
-"""The CUDA kernels (`edge_aggregate`, `flash_attention`,
-`decode_attention`, `ssd_scan`) against their plain PyTorch versions.
+"""The CUDA kernels (`edge_aggregate`, `gossip_combine`,
+`flash_attention`, `decode_attention`, `ssd_scan`) against their plain
+PyTorch versions.
 
 This file imports no jax, so it collects on a machine with only the
 port's dependencies. The tests marked ``cuda`` need an NVIDIA card and
@@ -81,6 +82,117 @@ def test_kernel_rejects_bad_inputs(cuda):
         ops.edge_aggregate(w, buf.t().contiguous().t(), coeffs, row_ptr, diag)
     with pytest.raises(ValueError):
         ops.edge_aggregate(w, buf.cpu(), coeffs, row_ptr, diag)
+
+
+# ---------------------------------------------------------------------------
+# gossip_combine and the ring gossip round
+# ---------------------------------------------------------------------------
+
+from repro_torch.fl import gossip  # noqa: E402
+from repro_torch.kernels.gossip_combine.ref import \
+    gossip_combine_ref  # noqa: E402
+from repro_torch.launch.fl8 import STATES, build_step  # noqa: E402
+from repro_torch.launch.mesh import StackedSilos  # noqa: E402
+
+# (K, T, dtype, offset): the reference kernel tests' cases, T = 65537,
+# T = 0, K up to the kernel's 8 at odd T, and weights starting `offset`
+# elements into their buffer (rows off the 16-byte grid).
+COMBINE_CASES = [
+    (2, 1024, torch.float32, 0), (5, 4096, torch.float32, 0),
+    (8, 1000, torch.float32, 0), (3, 70000, torch.float32, 0),
+    (4, 4096, torch.bfloat16, 0), (3, 65537, torch.float32, 0),
+    (3, 65537, torch.bfloat16, 0), (2, 0, torch.float32, 0),
+    (1, 7, torch.float32, 0), (7, 4099, torch.bfloat16, 0),
+    (8, 4097, torch.float32, 0), (3, 4096, torch.float32, 1),
+    (3, 4096, torch.bfloat16, 3), (6, 333, torch.float32, 2)]
+
+
+def _combine_inputs(k, t, dtype, offset, device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed + k * 100003 + t)
+    buf = torch.randn((k * t + offset,), generator=gen).to(dtype)
+    w = buf.to(device)[offset:].view(k, t)   # a view past the offset
+    a = torch.rand((k,), generator=gen)
+    return w, (a / a.sum()).to(device)
+
+
+def test_combine_op_on_cpu_launches_nothing():
+    w, a = _combine_inputs(3, 1001, torch.bfloat16, 0, "cpu")
+    before = ops.gossip_combine.launches
+    out = ops.gossip_combine(w, a)
+    assert ops.gossip_combine.launches == before
+    torch.testing.assert_close(out, gossip_combine_ref(w, a), rtol=0, atol=0)
+    assert out.dtype == torch.bfloat16
+    assert ops.gossip_combine(w[:, :0], a).shape == (0,)
+
+
+def test_ring_round_on_cpu_launches_nothing():
+    rng = np.random.default_rng(0)
+    p = {"w": torch.from_numpy(rng.normal(size=(4, 9)).astype(np.float32))}
+    before = ops.gossip_combine.launches
+    build_step(None, True, True, StackedSilos(4))(
+        p, gossip.init_ring_buffers(p))
+    assert ops.gossip_combine.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COMBINE_CASES,
+                         ids=[str(c) for c in COMBINE_CASES])
+def test_combine_kernel_equals_plain_version(cuda, case):
+    k, t, dtype, offset = case
+    w, a = _combine_inputs(k, t, dtype, offset, cuda)
+    before = ops.gossip_combine.launches
+    out = ops.gossip_combine(w, a)
+    torch.cuda.synchronize()
+    assert ops.gossip_combine.launches == before + (1 if t else 0)
+    assert out.shape == (t,) and out.dtype == dtype
+    torch.testing.assert_close(out, gossip_combine_ref(w, a), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_combine_kernel_rejects_bad_inputs(cuda):
+    w, a = _combine_inputs(3, 64, torch.float32, 0, cuda)
+    with pytest.raises(TypeError):
+        ops.gossip_combine(w.double(), a)
+    with pytest.raises(TypeError):
+        ops.gossip_combine(w, a.double())
+    with pytest.raises(ValueError):
+        ops.gossip_combine(w, a[:2])
+    with pytest.raises(ValueError):
+        ops.gossip_combine(w.t().contiguous().t(), a)
+    with pytest.raises(ValueError):
+        ops.gossip_combine(w, a.cpu())
+    w9, a9 = _combine_inputs(9, 64, torch.float32, 0, cuda)
+    with pytest.raises(ValueError):
+        ops.gossip_combine(w9, a9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", STATES, ids=[s[0] for s in STATES])
+def test_ring_round_kernel_path_equals_plain_path(cuda, state):
+    """A small mixed bf16 / fp32 tree on 5 stacked silos: one launch per
+    silo, bit-equal to the elementwise path, buffers bit-equal to the
+    rolls where fresh."""
+    _, left, right = state
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    p = {"a": torch.randn((5, 3, 37), generator=gen).to(torch.bfloat16),
+         "b": {"c": torch.randn((5, 129), generator=gen)}}
+    p = {"a": p["a"].to(cuda), "b": {"c": p["b"]["c"].to(cuda)}}
+    bufs = {"left": {"a": -p["a"], "b": {"c": 2 * p["b"]["c"]}},
+            "right": {"a": p["a"] / 2, "b": {"c": -p["b"]["c"]}}}
+    before = ops.gossip_combine.launches
+    new, nb = build_step(None, left, right, StackedSilos(5))(p, bufs)
+    torch.cuda.synchronize()
+    assert ops.gossip_combine.launches == before + 5
+    plain, _ = build_step(None, left, right, StackedSilos(5),
+                          use_kernel=False)(p, bufs)
+    assert torch.equal(new["a"], plain["a"]) and new["a"].dtype == \
+        torch.bfloat16
+    assert torch.equal(new["b"]["c"], plain["b"]["c"])
+    if right:
+        assert torch.equal(nb["left"]["a"], torch.roll(p["a"], 1, 0))
+    if left:
+        assert torch.equal(nb["right"]["b"]["c"],
+                           torch.roll(p["b"]["c"], -1, 0))
 
 
 # ---------------------------------------------------------------------------
