@@ -27,12 +27,17 @@ Phases, each printing one JSON line:
 6. flash_attention (this phase and those after it run without the
    deterministic algorithms that run_fl turns on): the kernel against its
    plain PyTorch version on the reference kernel tests' cases, bf16 cases
-   of the tensor-core route, and the yi-9b prefill shape (B=4, S=2048,
-   Hq=32, Hkv=4, hd=128, bf16, causal), within the reference tests'
-   tolerances (5e-4 f32, 2e-2 bf16); at the prefill shape also against
-   the plain version run in fp32, per row (FP32_ROW_REL_TOL); times the
-   kernel, the plain version and `F.scaled_dot_product_attention` (a
-   yardstick the port never calls) beside the bound;
+   of the wgmma route (groups of 3 and 7, S under one key tile, ragged
+   tiles, window and prefix edges across tiles, q sliced from a fused
+   qkv projection), and the yi-9b prefill shape (B=4, S=2048, Hq=32,
+   Hkv=4, hd=128, bf16, causal), within the reference tests' tolerances
+   (5e-4 f32, 2e-2 bf16), each case on the route the rule gives it; at
+   the prefill shape also against the plain version run in fp32, per row
+   (FP32_ROW_REL_TOL); ptxas's registers and spills of the wgmma kernels
+   (a spill fails the phase); times the kernel, the plain version and
+   `F.scaled_dot_product_attention` (a yardstick the port never calls)
+   beside the bound, at the yi-9b shape and at zamba2's (B=4, S=2048,
+   Hq=Hkv=32, hd=64);
 7. decode_attention: the same on the reference's decode cases and at
    B=8, S=4096 with random lengths (also against fp32, and timed); cache
    rows past the lengths are filled with NaN and must not change the
@@ -407,8 +412,17 @@ FA_CASES = [
     (1, 8, 1, 130, 32, 0, 0, "bfloat16"),     # MQA, hd=32
     (1, 1, 1, 256, 128, 8, 0, "bfloat16"),    # rows masked over whole tiles
     (4, 32, 32, 2048, 64, 0, 0, "bfloat16"),  # zamba2's shared block
+    # what the wgmma route does differently
+    (1, 14, 2, 300, 128, 0, 0, "bfloat16"),   # G=7 (qwen2-7b): 126 rows
+    (1, 8, 1, 40, 64, 0, 0, "bfloat16"),      # S under one key tile
+    (2, 8, 1, 333, 64, 0, 0, "bfloat16"),     # ragged 128-key tiles
+    (1, 4, 2, 520, 128, 200, 130, "bfloat16"),  # window/prefix across tiles
 ]
+#: q, k, v as column slices of one fused (B, S, (Hq + 2 Hkv) hd)
+#: projection, so q's sequence stride is not Hq hd.
+FA_FUSED = (2, 28, 4, 300, 128, 0, 0, "bfloat16")
 FA_MAIN = (4, 32, 4, 2048, 128, 0, 0, "bfloat16")   # yi-9b prefill
+FA_ZAMBA2 = (4, 32, 32, 2048, 64, 0, 0, "bfloat16")  # zamba2-1.2b prefill
 # decode_attention cases: (b, hq, hkv, s, hd, dtype)
 DEC_CASES = [
     (2, 4, 2, 128, 32, "float32"),
@@ -490,16 +504,70 @@ def device_ms(torch, fn, iters: int, warmup: int = 3, name=None) -> float:
                        f"three profiles (device events per profile: {seen})")
 
 
-def _fa_inputs(torch, case, gen):
+def _fa_inputs(torch, case, gen, fused=False):
     b, hq, hkv, s, hd, _, _, dt = case
     dtype = getattr(torch, dt)
+    if fused:
+        qkv = torch.randn((b, s, (hq + 2 * hkv) * hd), generator=gen,
+                          device="cuda", dtype=torch.float32).to(dtype)
+        return [x.unflatten(-1, (-1, hd)) for x in
+                qkv.split((hq * hd, hkv * hd, hkv * hd), dim=-1)]
     return [torch.randn((b, s, h, hd), generator=gen, device="cuda",
                         dtype=torch.float32).to(dtype)
             for h in (hq, hkv, hkv)]
 
 
-def phase_flash_attention(torch, ctx):
+def _fa_want_route(case) -> str:
+    """The kernel's route rule for contiguous inputs of group <= 128."""
+    return ("wgmma" if case[7] == "bfloat16" and case[4] in (64, 128)
+            else "cuda_core")
+
+
+def ptxas_functions(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an `nvcc -Xptxas=-v`
+    log, by mangled name."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _fa_sdpa(torch, q, k, v):
     import torch.nn.functional as F
+    return lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=q.shape[2] != k.shape[2])
+
+
+def _fa_bound(ctx, case) -> dict:
+    """Causal work and bytes of one call at ``case``, and the least time
+    the card could take for it."""
+    b, hq, hkv, s, hd = case[:5]
+    flops = 4 * b * hq * hd * (s * (s + 1) // 2)  # causal (qpos, kpos) pairs
+    nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+    bw, _, rate_key = card_rates(ctx["kind"])
+    peak = bf16_peak(ctx["kind"])
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    return dict(flops=flops, bytes=nbytes, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                rates=dict(card=rate_key, hbm_bytes_per_s=bw,
+                           bf16_flop_per_s=peak))
+
+
+def phase_flash_attention(torch, ctx):
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -512,52 +580,68 @@ def phase_flash_attention(torch, ctx):
     # every new tensor and index_put checks its indices on the card; the
     # serving phases run as a server would, without them.
     torch.use_deterministic_algorithms(False)
+    ptxas = {k: v for k, v in ptxas_functions(
+        build.PTXAS_LOG.get("flash_attention", "")).items() if "wgmma" in k}
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        raise AssertionError(f"flash_attention: the wgmma kernels spill: "
+                             f"{spills}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {}
-    for case in FA_CASES + [FA_MAIN]:
-        q, k, v = _fa_inputs(torch, case, gen)
+    errs, routes = {}, {}
+    for case, fused in ([(c, False) for c in FA_CASES + [FA_MAIN]]
+                        + [(FA_FUSED, True)]):
+        q, k, v = _fa_inputs(torch, case, gen, fused)
         win, pre, dt = case[5], case[6], case[7]
+        what = f"flash_attention {case}{' fused' if fused else ''}"
+        routes[what] = ops.route(q, k, v)
+        if routes[what] != _fa_want_route(case):
+            raise AssertionError(f"{what}: route {routes[what]}, expected "
+                                 f"{_fa_want_route(case)}")
         got = ops.flash_attention(q, k, v, window=win, prefix=pre)
         torch.cuda.synchronize()
-        errs[str(case)] = _compare(torch, got, plain(q, k, v, win, pre), dt,
-                                   f"flash_attention {case}")
+        errs[what] = _compare(torch, got, plain(q, k, v, win, pre), dt, what)
         if case != FA_MAIN:
             del got
-    # q, k, v, got are FA_MAIN's
+        else:
+            main = (q, k, v, got)
+    q, k, v, got = main
     fp32 = _hold_fp32(torch, got, plain(q.float(), k.float(), v.float()),
                       "flash_attention", f"flash_attention {FA_MAIN}")
-    del got
-    b, hq, hkv, s, hd = FA_MAIN[:5]
-    kernel_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v), 10)
+    del got, main
+    kernel_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v), 20)
     plain_ms = cuda_ms(torch, lambda: plain(q, k, v), 3, warmup=1)
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True)
-    library_ms = cuda_ms(torch, sdpa, 10)
+    sdpa = _fa_sdpa(torch, q, k, v)
+    library_ms = cuda_ms(torch, sdpa, 20)
     lib_err = float((sdpa().transpose(1, 2).float()
                      - ops.flash_attention(q, k, v).float()).abs().max())
-    pairs = s * (s + 1) // 2                 # causal (qpos, kpos) pairs
-    flops = 4 * b * hq * hd * pairs
-    nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
-    bw, _, rate_key = card_rates(ctx["kind"])
-    peak = bf16_peak(ctx["kind"])
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    bound = _fa_bound(ctx, FA_MAIN)
     ctx["flash_attention"] = dict(
         max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
         library_ms=library_ms)
+    # zamba2-1.2b's shared attention block: timed beside SDPA and its bound
+    qz, kz, vz = _fa_inputs(torch, FA_ZAMBA2, gen)
+    zamba2 = dict(
+        route=ops.route(qz, kz, vz),
+        kernel_ms=cuda_ms(torch, lambda: ops.flash_attention(qz, kz, vz), 20),
+        plain_ms=cuda_ms(torch, lambda: plain(qz, kz, vz), 3, warmup=1),
+        library_ms=cuda_ms(torch, _fa_sdpa(torch, qz, kz, vz), 20),
+        **_fa_bound(ctx, FA_ZAMBA2))
+    zamba2["achieved_tflop_per_s"] = (zamba2["flops"] / zamba2["kernel_ms"]
+                                      / 1e9)
+    del qz, kz, vz
+    b, hq, hkv, s, hd = FA_MAIN[:5]
     emit(phase="flash_attention", ok=True,
          shape=dict(b=b, s=s, hq=hq, hkv=hkv, hd=hd, dtype="bfloat16",
-                    causal=True),
+                    causal=True), route=ops.route(q, k, v), routes=routes,
+         wgmma_ptxas=ptxas,
          max_abs_diff=errs, vs_fp32_plain=fp32, kernel_ms=kernel_ms,
          plain_ms=plain_ms, library_ms=library_ms,
          library_max_abs_diff=lib_err, fp32_row_rel_tol=FP32_ROW_REL_TOL[
              "flash_attention"],
-         bound_ms=max(bytes_ms, ops_ms), flops=flops, bytes=nbytes,
-         rates=dict(card=rate_key, hbm_bytes_per_s=bw,
-                    bf16_flop_per_s=peak),
-         achieved_tflop_per_s=flops / kernel_ms / 1e9)
+         achieved_tflop_per_s=bound["flops"] / kernel_ms / 1e9, **bound,
+         zamba2=dict(shape=list(FA_ZAMBA2[:5]), **zamba2))
 
 
 def _dec_inputs(torch, case, gen):
@@ -1619,11 +1703,17 @@ def phase_ring_gossip(torch, ctx):
          gossip_combine_bound_ms=ctx["gossip_combine"]["bound_ms"])
 
 
+#: Name stems of the port's hand-written kernels in a profile.
+HAND_WRITTEN = ("edge_aggregate", "gossip_combine", "flash_fwd",
+                "decode_split", "decode_combine", "ssd_scan")
+
+
 def profile_window(torch, fn, iters: int, unprofiled_ms: float) -> dict:
     """Where ``iters`` calls of ``fn`` spend their time: device time by
     kernel name, the device's busy time per call and its idle share
-    against the unprofiled time per call, and the host operators with the
-    most CPU time of their own."""
+    against the unprofiled time per call, each hand-written kernel's device
+    time per call, and the host operators with the most CPU time of their
+    own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1649,6 +1739,8 @@ def profile_window(torch, fn, iters: int, unprofiled_ms: float) -> dict:
         kernel_launches=sum(x[2] for x in kern) // iters,
         top_kernels=[dict(kernel=k[:90], device_ms=us / 1e3 / iters,
                           calls=c // iters) for us, k, c in kern[:10]],
+        hand_written_ms={name: sum(us for us, k, _ in kern if name in k)
+                         / 1e3 / iters for name in HAND_WRITTEN},
         top_host_ops=[dict(op=k[:60], cpu_ms=us / 1e3 / iters,
                            calls=c // iters) for us, k, c in host[:10]])
 

@@ -18,43 +18,57 @@
 //
 // Bound. The work is 4*hd flops per visible (query head, qpos, kpos)
 // triple: at the yi-9b prefill shape (B=4, S=2048, Hq=32, Hkv=4,
-// hd=128, causal) 137.4 GFLOP against 151 MB of q/k/v/out, so it is
-// compute bound on the card (0.139 ms at the 989 TFLOP/s bf16 tensor
-// peak).
+// hd=128, causal) 137.4 GFLOP against 151 MB of q/k/v/out, at zamba2's
+// (B=4, S=2048, Hq=Hkv=32, hd=64, causal) 68.7 GFLOP against 134 MB. So
+// it is bound by operations on the card: 0.139 and 0.0695 ms at the
+// 989 TFLOP/s bf16 tensor-core peak, which only wgmma reaches.
 //
-// Two routes, one result. Both: one CTA of 4 warps takes one (batch, KV
-// head) and a run of consecutive rows of the flattened (qpos, g) order,
-// so all the `group` query heads of its KV head share every K/V tile it
-// loads, as the TPU kernel's (group*block_q, hd) q tile does; m, l and
-// the output accumulator stay in registers; key tiles wholly past the
-// causal diagonal, or wholly before every row's window, are skipped
-// (unless a row of the CTA lies in the bidirectional prefix), which
-// leaves the result the same.
+// Two routes, one result. Both: one CTA takes one (batch, KV head) and
+// a run of consecutive rows of the flattened (qpos, g) order, so all the
+// `group` query heads of its KV head share every K/V tile it loads, as
+// the TPU kernel's (group*block_q, hd) q tile does; m, l and the output
+// accumulator stay in registers; key tiles wholly past the causal
+// diagonal, or wholly before every row's window, are skipped (unless a
+// row of the CTA lies in the bidirectional prefix), which leaves the
+// result the same.
 //
-// * Tensor cores (bf16, hd 32/64/128, 16-byte aligned rows): the
-//   FlashAttention-2 shape on mma.sync. A CTA takes 64 rows, each warp
-//   16. Key tiles of 64 rows of K and V are double-buffered in shared
-//   memory by cp.async (zero-filled past S), so the next tile loads while
-//   this one computes. S = Q K^T runs as m16n8k16 bf16 MMAs with fp32
-//   accumulators from Q fragments held in registers for the whole loop;
-//   the online softmax works on the accumulator fragments (row max over
-//   the 4 lanes of a quad); P is rounded to bf16 in registers, where the
-//   accumulator layout of two 8-key tiles is the A fragment of the next
-//   MMA, and O += P V reads V through ldmatrix.trans. The row sum l
-//   adds the unrounded p (the reference rounds p to bf16 before p@v).
-// * CUDA cores (fp32 inputs, or any other head dim or alignment): a CTA
-//   takes 4*RW rows; per key tile of 32 it stages K and V as fp32 in
-//   shared memory; lane j computes the scores of key j for the warp's
+// * Tensor cores (bf16, hd 64/128, group <= 128, 16-byte aligned base
+//   and strides): TMA + wgmma, warp-specialised. A CTA of 3 warpgroups
+//   takes P = 128 / group query positions, R = P * group <= 128 rows.
+//   Warpgroup 0 is the producer: after `setmaxnreg.dec` one thread loads
+//   the CTA's Q once and then 128-key tiles of K and V into a ring of
+//   shared-memory stages through TMA (4-D tensor maps over (hd, heads,
+//   S, B) with the tensors' own strides, so rows past S come in as zeros;
+//   128-byte swizzle, an hd-128 tile as two 64-column boxes), each stage
+//   guarded by `full` mbarriers (K and V apart, with the expected bytes)
+//   and an `empty` one. Warpgroups 1 and 2 are consumers of 64 rows
+//   each (`setmaxnreg.inc` to 240): S = Q K^T by wgmma m64n128k16 from
+//   shared memory (both K-major), the online softmax on the accumulator
+//   in registers (exp2 with scale*log2(e) folded in; the mask is applied
+//   only on tiles that the CTA's rows do not all see in full, in int32),
+//   P rounded to bf16 in registers, whose accumulator layout is the
+//   A-fragment of O += P V, a wgmma m64n{hd}k16 with A from registers and
+//   V read in its stored layout through the transpose-B bit. Row blocks
+//   run heaviest first (reverse causal order on the grid's y axis). The
+//   row sum l adds the unrounded p (the reference rounds p to bf16 before
+//   p@v). Not yet: ping-pong of the two consumers, softmax/MMA overlap
+//   within a warpgroup, clusters with TMA multicast.
+// * CUDA cores (fp32 inputs, or any other head dim, group or alignment):
+//   a CTA takes 4*RW rows; per key tile of 32 it stages K and V as fp32
+//   in shared memory; lane j computes the scores of key j for the warp's
 //   rows (float4 reads, row pitch hd+4 so the 8 lanes of a quarter warp
 //   hit distinct banks); the row max and sum go through warp shuffles;
 //   the probabilities go to shared memory and each lane accumulates its
 //   hd/32 output columns from them. PERF.md has both routes' times.
 //
 // Interface. A plain C entry point, loaded with ctypes. It launches on
-// the stream it is given, allocates nothing, and returns the CUDA error
-// code (0 on success). dtype 0 = fp32, 1 = bf16; inputs and output share
-// it; accumulation is fp32.
+// the stream it is given, allocates nothing, and returns 0 on success,
+// else a CUDA runtime error code, or kCuResultBase + the CUresult of a
+// tensor-map encoding that failed. dtype 0 = fp32, 1 = bf16; inputs and
+// output share it; accumulation is fp32.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -289,48 +303,126 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16)
+// Tensor-core route (bf16, hd 64/128): TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaRows = kWarps * 16;  // rows per CTA, 16 per warp
-constexpr int kMmaKeys = 64;           // keys per tile
+constexpr int kCuResultBase = 10000;  // added to a failed encode's CUresult
+constexpr int kWgThreads = 384;       // producer warpgroup + 2 consumers
+constexpr int kWgRows = 128;          // rows per CTA, 64 per consumer
+constexpr int kWgKeys = 128;          // keys per tile
+constexpr int kAtomCols = 64;         // bf16 columns of a 128-byte row
+constexpr int kAtomBytes = 128 * 128;  // 128 rows x 128 bytes
+constexpr int kConsumerThreads = 256;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// Shared memory: Q | K stages | V stages | mbarriers, each tile a run of
+// 64-column atoms of 128 rows (128-byte swizzle, 1024-byte aligned).
+template <int HD>
+struct WgCfg {
+  static constexpr int kAtoms = HD / kAtomCols;
+  // shared memory in all: 160 KB at hd 128, 144 KB at hd 64
+  static constexpr int kStages = HD == 128 ? 2 : 4;
+  static constexpr int kTileBytes = kAtoms * kAtomBytes;
+  static constexpr int kKOff = kTileBytes;
+  static constexpr int kVOff = kKOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  static constexpr int kNumBars = 1 + 3 * kStages;
+  static constexpr size_t kSmem = 1024 + kBarOff + 8 * kNumBars;
+};
+
+struct WgArgs {
+  int seq, kv_heads, group;
+  int qpos_per_cta, rows;  // P and R = P * group
+  int causal, window, prefix;
+  float scale_log2;         // scale * log2(e)
+  __nv_bfloat16* out;       // contiguous (B, S, Hkv * group, hd)
+};
+
+__device__ __forceinline__ bool visible32(int qp, int kp, const WgArgs& a) {
+  bool ok = true;
+  if (a.causal) ok = kp <= qp;
+  if (a.window > 0) ok = ok && (qp - kp) < a.window;
+  if (a.prefix > 0) ok = ok || (qp < a.prefix && kp < a.prefix);
+  return ok && kp < a.seq && qp < a.seq;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(gmem), "r"(src_bytes));
+// wgmma descriptor of a tile in shared memory with the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units), layout
+// type 1. K-major (Q, K): the stride offset steps 8 rows (1024 bytes),
+// the leading one is unused. MN-major (V): the stride offset steps 8 keys
+// (1024 bytes), the leading one the next 64-column atom.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Keeps the compiler from touching wgmma operand registers across the
+// asynchronous window: reads after the wait depend on this.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -338,229 +430,379 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D (+)= A . B^T, A and B K-major in shared memory (64 x 16 and 128 x 16).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D += A . B, A (64 x 16) in registers, B (16 x 128) MN-major in shared
+// memory (the transpose-B bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A . B, A (64 x 16) in registers, B (16 x 64) MN-major in shared
+// memory (the transpose-B bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int HD>
-constexpr size_t mma_smem_bytes() {
-  return static_cast<size_t>(kMmaRows + 4 * kMmaKeys) * (HD + 8) *
-         sizeof(__nv_bfloat16);
-}
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, WgArgs a) {
+  using Cfg = WgCfg<HD>;
+  constexpr int NS = Cfg::kStages;
+  constexpr uint32_t kTile = Cfg::kTileBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
+      ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + Cfg::kKOff;
+  const uint32_t v_s = base + Cfg::kVOff;
+  const uint32_t q_full = base + Cfg::kBarOff;
+  const uint32_t k_full = q_full + 8;           // + 8 * stage
+  const uint32_t v_full = k_full + 8 * NS;      // + 8 * stage
+  const uint32_t empty = v_full + 8 * NS;       // + 8 * stage
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, FlashArgs a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int kPitch = HD + 8;  // 16-byte rows; quads hit distinct banks
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  constexpr int kKSteps = HD / 16;
-  constexpr int kNTiles = kMmaKeys / 8;
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);  // kMmaRows x kPitch
-  bf16* ks = qs + kMmaRows * kPitch;          // 2 x kMmaKeys x kPitch
-  bf16* vs = ks + 2 * kMmaKeys * kPitch;      // 2 x kMmaKeys x kPitch
+  const int S = a.seq;
+  const int b = blockIdx.x / a.kv_heads;
+  const int h = blockIdx.x % a.kv_heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * a.qpos_per_cta;  // heavy first
+  const int qhi = min(q0 + a.qpos_per_cta, S) - 1;  // last real position
+  // [kstart, kend): the keys any row of this CTA can see.
+  const bool in_prefix = a.prefix > 0 && q0 < a.prefix;
+  int kend = a.causal ? qhi + 1 : S;
+  if (in_prefix) kend = max(kend, min(a.prefix, S));
+  const int kstart =
+      (a.window > 0 && !in_prefix) ? max(0, q0 - a.window + 1) : 0;
+  const int tile0 = kstart / kWgKeys;
+  const int ntiles = (kend + kWgKeys - 1) / kWgKeys - tile0;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int64_t b = blockIdx.y / a.kv_heads;
-  const int64_t h = blockIdx.y % a.kv_heads;
-  const int64_t G = a.group;
-  const int S = static_cast<int>(a.seq);
-  const int64_t nrows = a.seq * G;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kMmaRows;
-
-  const bf16* qb = q + b * a.q_sb;
-  const bf16* kb = k + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = v + b * a.v_sb + h * a.v_sh;
-
-  for (int idx = threadIdx.x; idx < kMmaRows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    const int64_t f = row0 + r;
-    const int64_t ff = f < nrows ? f : 0;
-    cp_async16(qs + r * kPitch + c * 8,
-               qb + (ff / G) * a.q_ss + (h * G + ff % G) * a.q_sh + c * 8,
-               f < nrows);
-  }
-  cp_async_commit();
-
-  int kstart, kend;
-  key_range(row0, kMmaRows, S, a, &kstart, &kend);
-  const int tile0 = (kstart / kMmaKeys) * kMmaKeys;
-  const int ntiles = (kend - tile0 + kMmaKeys - 1) / kMmaKeys;
-
-  auto load_kv = [&](int k0, int buf) {
-    for (int idx = threadIdx.x; idx < kMmaKeys * kChunks; idx += kThreads) {
-      const int j = idx / kChunks;
-      const int c = idx % kChunks;
-      const int kp = k0 + j;
-      const int64_t kk = kp < S ? kp : 0;
-      cp_async16(ks + (buf * kMmaKeys + j) * kPitch + c * 8,
-                 kb + kk * a.k_ss + c * 8, kp < S);
-      cp_async16(vs + (buf * kMmaKeys + j) * kPitch + c * 8,
-                 vb + kk * a.v_ss + c * 8, kp < S);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumerThreads);
     }
-    cp_async_commit();
-  };
-  if (ntiles > 0) {
-    load_kv(tile0, 0);
-    cp_async_wait<1>();  // the query rows; the first K/V tile may be in flight
-  } else {
-    cp_async_wait<0>();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // This warp's 16 query rows as m16n8k16 A fragments, for the whole loop.
-  const int gr = lane / 4;        // fragment row (and row + 8)
-  const int gc = 2 * (lane % 4);  // fragment column pair
-  uint32_t qf[kKSteps][4];
-  {
-    const bf16* qw = qs + warp * 16 * kPitch;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, Cfg::kAtoms * a.rows * 128);
 #pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      qf[kk][0] = lds32(qw + gr * kPitch + kk * 16 + gc);
-      qf[kk][1] = lds32(qw + (gr + 8) * kPitch + kk * 16 + gc);
-      qf[kk][2] = lds32(qw + gr * kPitch + kk * 16 + gc + 8);
-      qf[kk][3] = lds32(qw + (gr + 8) * kPitch + kk * 16 + gc + 8);
-    }
-  }
-  int qp[2];
+      for (int c = 0; c < Cfg::kAtoms; ++c)
+        tma_load_4d(q_s + c * kAtomBytes, &qmap, q_full, c * kAtomCols,
+                    h * a.group, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % NS;
+        const int round = t / NS;
+        if (round > 0) mbar_wait(empty + 8 * st, (round - 1) & 1);
+        const int k0 = (tile0 + t) * kWgKeys;
+        mbar_expect_tx(k_full + 8 * st, kTile);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int64_t f = row0 + warp * 16 + gr + 8 * r;
-    qp[r] = f < nrows ? static_cast<int>(f / G) : S;
-  }
-
-  float o[HD / 8][4];
+        for (int c = 0; c < Cfg::kAtoms; ++c)
+          tma_load_4d(k_s + st * kTile + c * kAtomBytes, &kmap,
+                      k_full + 8 * st, c * kAtomCols, h, k0, b);
+        mbar_expect_tx(v_full + 8 * st, kTile);
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = tile0 + t * kMmaKeys;
-    const int buf = t & 1;
-    if (t + 1 < ntiles) {
-      load_kv(k0 + kMmaKeys, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = ks + buf * kMmaKeys * kPitch;
-    const bf16* vt = vs + buf * kMmaKeys * kPitch;
-
-    // S = Q K^T for 16 rows x 64 keys: 8 accumulator tiles of 16 x 8.
-    float s[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      const bf16* kr = kt + (j * 8 + gr) * kPitch + gc;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        mma_bf16(s[j], qf[kk], lds32(kr + kk * 16), lds32(kr + kk * 16 + 8));
-    }
-
-    // Mask, scale, online softmax. Element e of tile j is row gr + 8*(e/2),
-    // key k0 + 8*j + gc + (e%2).
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = visible(qp[e / 2], k0 + 8 * j + gc + (e % 2), S, a);
-        s[j][e] = ok ? s[j][e] * a.scale : kNegInf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        for (int c = 0; c < Cfg::kAtoms; ++c)
+          tma_load_4d(v_s + st * kTile + c * kAtomBytes, &vmap,
+                      v_full + 8 * st, c * kAtomCols, h, k0, b);
       }
-    float alpha[2];
+    }
+  } else {
+    // ---- consumer warpgroups: 64 rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int G = a.group;
+    const float sl2 = a.scale_log2;
+    // This thread's two rows (accumulator rows lane/4 and lane/4 + 8 of
+    // its warp's 16); S marks a padding row, which sees nothing.
+    int qp[2], row[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = m_new > 0.5f * kNegInf ? expf(m[r] - m_new) : 0.f;
-      m[r] = m_new;
-      l[r] *= alpha[r];
+      row[r] = 64 * cw + 16 * warp + lane / 4 + 8 * r;
+      const int pos = q0 + row[r] / G;
+      qp[r] = (row[r] < a.rows && pos < S) ? pos : S;
     }
+    const int col = 2 * (lane % 4);
+
+    float o[HD / 2];
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+
+    const uint64_t dq = smem_desc(q_s + cw * 64 * 128, 16, 1024);
+    const uint64_t dk = smem_desc(k_s, 16, 1024);
+    const uint64_t dv = smem_desc(v_s, kAtomBytes, 1024);
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % NS;
+      const uint32_t ph = (t / NS) & 1;
+      const int k0 = (tile0 + t) * kWgKeys;
+
+      // S = Q K^T: 64 rows x 128 keys, hd/16 k-steps; k-step kk lies in
+      // atom kk/4 at byte 32*(kk%4) of each 128-byte row.
+      float s[64];
+      mbar_wait(k_full + 8 * st, ph);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2;
-        const float p = s[j][e] > 0.5f * kNegInf ? expf(s[j][e] - m[r]) : 0.f;
-        s[j][e] = p;
-        l[r] += p;
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
+        wgmma_ss_n128(s, dq + (off >> 4), dk + ((st * kTile + off) >> 4),
+                      kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+
+      // Element 4j+e of s: row row[e/2], key k0 + 8j + col + e%2. The
+      // mask runs only where some real row of the CTA misses a key.
+      const bool full =
+          k0 + kWgKeys <= S &&
+          (((!a.causal || k0 + kWgKeys - 1 <= q0) &&
+            (a.window <= 0 || qhi - k0 < a.window)) ||
+           (a.prefix > 0 && qhi < a.prefix && k0 + kWgKeys <= a.prefix));
+      if (!full) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!visible32(qp[e / 2], k0 + 8 * j + col + (e % 2), a))
+              s[4 * j + e] = kNegInf;
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // in log2 units; a tile with nothing visible leaves m as it was
+        const float m_new =
+            fmaxf(m[r], mx[r] > 0.5f * kNegInf ? mx[r] * sl2 : kNegInf);
+        mu[r] = m_new > 0.5f * kNegInf ? m_new : 0.f;  // the `safe` guard
+        alpha[r] = exp2f(m[r] - mu[r]);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      uint32_t pa[8][4];  // P in bf16 as the A fragments of 8 k-steps
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float p0 = exp2f(fmaf(s[4 * j], sl2, -mu[0]));
+        const float p1 = exp2f(fmaf(s[4 * j + 1], sl2, -mu[0]));
+        const float p2 = exp2f(fmaf(s[4 * j + 2], sl2, -mu[1]));
+        const float p3 = exp2f(fmaf(s[4 * j + 3], sl2, -mu[1]));
+        l[0] += p0 + p1;
+        l[1] += p2 + p3;
+        pa[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
+        pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
       }
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V, 16 keys per step; P's accumulator tiles 2*kk, 2*kk+1 form
-    // the A fragment.
-#pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int mi = lane / 8;  // which 8x8 matrix this lane addresses
-      const bf16* vrow =
-          vt + (kk * 16 + (mi & 1) * 8 + lane % 8) * kPitch + (mi >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < HD / 8; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vrow + n * 8);
-        mma_bf16(o[n], pa, vf[0], vf[1]);
-        mma_bf16(o[n + 1], pa, vf[2], vf[3]);
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
 
-  const int64_t hq = a.kv_heads * G;
+      // O += P V: 8 k-steps of 16 keys, V MN-major (16 keys x hd).
+      mbar_wait(v_full + 8 * st, ph);
+      wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int64_t f = row0 + warp * 16 + gr + 8 * r;
-    if (f >= nrows) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    bf16* orow = out + ((b * a.seq + f / G) * hq + h * G + f % G) * HD + gc;
+      for (int kk = 0; kk < kWgKeys / 16; ++kk)
+        wgmma_rs(o, pa[kk], dv + ((st * kTile + kk * 16 * 128) >> 4));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(empty + 8 * st);
+    }
+
+    const int64_t hq = static_cast<int64_t>(a.kv_heads) * G;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
-          o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (qp[r] >= S) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      const int g = row[r] % G;
+      __nv_bfloat16* orow =
+          a.out + ((static_cast<int64_t>(b) * S + qp[r]) * hq +
+                   static_cast<int64_t>(h) * G + g) * HD + col;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                  o[4 * j + 2 * r + 1] * inv);
+    }
   }
 }
 
+using EncodeFn = PFN_cuTensorMapEncodeTiled_v12000;
+
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map over (hd, heads, S, B) with element strides (1, sh,
+// ss, sb) and a box of (64, box_h, box_s, 1), 128-byte swizzle; elements
+// outside the tensor read as zero. Returns 0 or kCuResultBase + CUresult.
+int encode_4d(CUtensorMap* map, const void* ptr, int64_t hd, int64_t heads,
+              int64_t seq, int64_t batch, int64_t sh, int64_t ss, int64_t sb,
+              int box_h, int box_s) {
+  const EncodeFn fn = encode_fn();
+  if (fn == nullptr) return kCuResultBase + CUDA_ERROR_NOT_FOUND;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                        static_cast<cuuint64_t>(heads),
+                        static_cast<cuuint64_t>(seq),
+                        static_cast<cuuint64_t>(batch)};
+  cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(sh) * sizeof(__nv_bfloat16),
+      static_cast<cuuint64_t>(ss) * sizeof(__nv_bfloat16),
+      static_cast<cuuint64_t>(sb) * sizeof(__nv_bfloat16)};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(kAtomCols),
+                       static_cast<cuuint32_t>(box_h),
+                       static_cast<cuuint32_t>(box_s), 1};
+  cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kCuResultBase + static_cast<int>(r);
+}
+
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* out,
-               const FlashArgs& a, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<HD>();
-  auto kernel = flash_fwd_mma_kernel<HD>;
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 const FlashArgs& a, cudaStream_t stream) {
+  using Cfg = WgCfg<HD>;
+  if (a.group < 1 || a.group > kWgRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = static_cast<int>(a.group);
+  const int P = kWgRows / G;
+  const int64_t hq = a.kv_heads * a.group;
+  CUtensorMap qm, km, vm;
+  int rc = encode_4d(&qm, q, HD, hq, a.seq, a.batch, a.q_sh, a.q_ss, a.q_sb,
+                     G, P);
+  if (rc == 0)
+    rc = encode_4d(&km, k, HD, a.kv_heads, a.seq, a.batch, a.k_sh, a.k_ss,
+                   a.k_sb, 1, kWgKeys);
+  if (rc == 0)
+    rc = encode_4d(&vm, v, HD, a.kv_heads, a.seq, a.batch, a.v_sh, a.v_ss,
+                   a.v_sb, 1, kWgKeys);
+  if (rc != 0) return rc;
+  WgArgs w;
+  w.seq = static_cast<int>(a.seq);
+  w.kv_heads = static_cast<int>(a.kv_heads);
+  w.group = G;
+  w.qpos_per_cta = P;
+  w.rows = P * G;
+  w.causal = static_cast<int>(a.causal);
+  w.window = static_cast<int>(a.window);
+  w.prefix = static_cast<int>(a.prefix);
+  w.scale_log2 = a.scale * 1.4426950408889634f;
+  w.out = static_cast<__nv_bfloat16*>(out);
+  auto kernel = flash_fwd_wgmma_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(Cfg::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t nrows = a.seq * a.group;
-  const dim3 grid(static_cast<unsigned>((nrows + kMmaRows - 1) / kMmaRows),
-                  static_cast<unsigned>(a.batch * a.kv_heads));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), a);
+  const dim3 grid(static_cast<unsigned>(a.batch * a.kv_heads),
+                  static_cast<unsigned>((a.seq + P - 1) / P));
+  kernel<<<grid, kWgThreads, Cfg::kSmem, stream>>>(qm, km, vm, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -600,9 +842,10 @@ int dispatch_hd(int head_dim, const void* q, const void* k, const void* v,
 
 // dims: batch, seq, kv_heads, group, q strides (b, s, h), k strides
 // (b, s, h), v strides (b, s, h), causal, window, prefix, tensor cores
-// -- 17 int64. The last asks for the tensor-core route; the caller sets
-// it only for bf16 at hd 32/64/128 with 16-byte aligned rows. out is a
-// contiguous (B, S, Hq, hd) array of the inputs' type.
+// -- 17 int64. The last asks for the wgmma route; the caller sets it
+// only for bf16 at hd 64/128 with group <= 128 and 16-byte aligned base
+// and strides. out is a contiguous (B, S, Hq, hd) array of the inputs'
+// type.
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
                                    const void* k, const void* v, void* out,
                                    const int64_t* dims, float scale,
@@ -626,11 +869,14 @@ extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
   a.prefix = dims[15];
   a.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dims[16] && dtype == 1) {
+  if (dims[16]) {
+    // a window or prefix past S acts as S + 1; the wgmma route keeps int32
+    a.window = a.window > a.seq ? a.seq + 1 : a.window;
+    a.prefix = a.prefix > a.seq ? a.seq + 1 : a.prefix;
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (head_dim) {
-      case 32: return launch_mma<32>(q, k, v, out, a, st);
-      case 64: return launch_mma<64>(q, k, v, out, a, st);
-      case 128: return launch_mma<128>(q, k, v, out, a, st);
+      case 64: return launch_wgmma<64>(q, k, v, out, a, st);
+      case 128: return launch_wgmma<128>(q, k, v, out, a, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

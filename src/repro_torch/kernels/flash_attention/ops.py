@@ -4,11 +4,21 @@
 `flash_attention` takes the model layout q (B, S, Hq, hd), k/v
 (B, S, Hkv, hd). Tensors on the CPU go to the plain PyTorch version
 (`ref.py`); tensors on a card go to the CUDA kernel
-(`csrc/flash_attention.cu`), which reads them through their strides,
-on the tensor cores (mma.sync) for bf16 at head_dim 32/64/128 with
-16-byte aligned rows and on the CUDA cores otherwise. It never falls
-back from the kernel to the plain version or back, and any other device
-raises.
+(`csrc/flash_attention.cu`), which reads them through their strides.
+
+It replaces the TPU kernel `_flash_kernel` of
+`repro.kernels.flash_attention.kernel`. On the card it is bound by
+operations: at the yi-9b prefill shape (B 4, S 2048, Hq 32, Hkv 4, hd
+128, causal) 137.4 GFLOP, 0.139 ms at the bf16 tensor-core peak. So bf16
+inputs at head_dim 64 or 128, with a group Hq / Hkv of at most 128 and
+16-byte aligned base and strides, take the `wgmma` route (`route`): TMA
+loads of K/V tiles into a ring of shared-memory stages, one producer
+warp and two consumer warpgroups on wgmma. Every other input (fp32, hd
+32 or 256, misaligned) takes the `cuda_core` route. The choice depends
+on dtype, head dim, group and alignment alone. A failed launch or
+tensor-map encoding raises with its CUDA or CU result code: the op never
+falls back from the kernel to the plain version or to the other route,
+and any other device raises.
 `flash_attention.launches` counts kernel launches.
 """
 
@@ -25,7 +35,10 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 _KERNEL = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-MMA_HEAD_DIMS = (32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_MAX_GROUP = 128  # a CTA holds 128 rows: at least one query position
+#: The C entry point returns this plus the CUresult of a failed encoding.
+_CU_RESULT_BASE = 10000
 
 
 def _library() -> ctypes.CDLL:
@@ -80,12 +93,19 @@ def _check_cuda(q, k, v) -> None:
 
 
 def tensor_core_route(q, k, v) -> bool:
-    """Whether the kernel takes its tensor-core route for these inputs:
-    bf16, head_dim 32/64/128, rows on 16-byte boundaries."""
-    return (q.dtype == torch.bfloat16 and q.shape[3] in MMA_HEAD_DIMS
+    """Whether the kernel takes its tensor-core (wgmma) route for these
+    inputs: bf16, head_dim 64/128, group Hq / Hkv <= 128, every base
+    address and stride on 16 bytes (TMA's rule)."""
+    return (q.dtype == torch.bfloat16 and q.shape[3] in WGMMA_HEAD_DIMS
+            and q.shape[2] // k.shape[2] <= WGMMA_MAX_GROUP
             and all(x.data_ptr() % 16 == 0
                     and all(st % 8 == 0 for st in x.stride()[:3])
                     for x in (q, k, v)))
+
+
+def route(q, k, v) -> str:
+    """The kernel's route for these inputs: "wgmma" or "cuda_core"."""
+    return "wgmma" if tensor_core_route(q, k, v) else "cuda_core"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -118,6 +138,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
+    if rc >= _CU_RESULT_BASE:
+        raise RuntimeError("flash_attention: tensor map encoding failed, "
+                           f"CUresult {rc - _CU_RESULT_BASE}")
     if rc != 0:
         raise RuntimeError(f"flash_attention: launch failed, cudaError {rc}")
     return out

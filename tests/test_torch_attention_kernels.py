@@ -44,6 +44,11 @@ FA_CASES = [
     (1, 4, 2, 64, 32, 8, 16, "float32"),      # window + prefix
     (2, 4, 2, 64, 64, 0, 0, "bfloat16"),      # bf16
     (1, 16, 4, 80, 128, 0, 0, "float32"),     # hd=128, non-multiple seq
+    # the shapes of the card's wgmma-route cases, in fp32
+    (1, 14, 2, 300, 128, 0, 0, "float32"),    # group 7 (126-row CTAs)
+    (1, 8, 1, 40, 64, 0, 0, "float32"),       # S under one key tile
+    (2, 8, 1, 333, 64, 0, 0, "float32"),      # ragged 128-key tiles
+    (1, 4, 2, 520, 128, 200, 130, "float32"),  # window/prefix across tiles
 ]
 DEC_CASES = [
     # (b, hq, hkv, s, hd, block_s, dtype) -- test_kernels.DEC_CASES
@@ -94,6 +99,30 @@ def test_flash_plain_matches_ref_and_interpret_kernel(case):
     np.testing.assert_allclose(_f32(pfa_ref(qt, kt, vt, window=win,
                                             prefix=pre)), _f32(got),
                                rtol=0, atol=0)
+
+
+def test_flash_plain_fused_projection_slice():
+    """q, k, v as column slices of one fused (B, S, (Hq + 2 Hkv) hd)
+    projection (q's sequence stride is not Hq hd), against the
+    reference's oracle and interpret-mode kernel on contiguous copies."""
+    b, hq, hkv, s, hd = 2, 14, 2, 72, 128
+    rng = np.random.default_rng(2)
+    qkv = rng.standard_normal((b, s, (hq + 2 * hkv) * hd)).astype(np.float32)
+    t = torch.from_numpy(qkv)
+    q = t[..., :hq * hd].unflatten(-1, (hq, hd))
+    k = t[..., hq * hd:(hq + hkv) * hd].unflatten(-1, (hkv, hd))
+    v = t[..., (hq + hkv) * hd:].unflatten(-1, (hkv, hd))
+    assert q.stride(1) == (hq + 2 * hkv) * hd
+    got = fa_ops.flash_attention(q, k, v, window=40, prefix=9)
+    qj, kj, vj = (jnp.asarray(x.transpose(1, 2).contiguous().numpy())
+                  for x in (q, k, v))
+    want = rfa_ref(qj, kj, vj, window=40, prefix=9)
+    np.testing.assert_allclose(_f32(got.transpose(1, 2)), _f32(want),
+                               **_tol("float32"))
+    ker = rfa_kernel(qj, kj, vj, window=40, prefix=9, block_q=32,
+                     block_k=32, interpret=True)
+    np.testing.assert_allclose(_f32(got.transpose(1, 2)), _f32(ker),
+                               **_tol("float32"))
 
 
 @pytest.mark.parametrize("case", DEC_CASES, ids=[str(c) for c in DEC_CASES])

@@ -223,6 +223,13 @@ FA_CASES = [
     (4, 32, 4, 2048, 128, 0, 0, torch.bfloat16),
     (1, 4, 2, 72, 256, 0, 0, torch.float32),      # hd=256 (paligemma)
     (1, 4, 2, 72, 256, 8, 16, torch.bfloat16),    # hd=256 on the CUDA cores
+    # what the wgmma route does differently: 126 rows a CTA (G=7, qwen2-7b's
+    # group), S under one tile, ragged 128-key tiles, window and prefix
+    # edges across tiles
+    (1, 14, 2, 300, 128, 0, 0, torch.bfloat16),
+    (1, 8, 1, 40, 64, 0, 0, torch.bfloat16),
+    (2, 8, 1, 333, 64, 0, 0, torch.bfloat16),
+    (1, 4, 2, 520, 128, 200, 130, torch.bfloat16),
 ]
 DEC_CASES = [
     (2, 4, 2, 128, 32, torch.float32),
@@ -267,14 +274,61 @@ def test_attention_ops_on_cpu_launch_nothing():
             dec_ops.decode_attention.launches) == before
 
 
-def test_tensor_core_route_choice():
-    q = torch.zeros(1, 8, 4, 128, dtype=torch.bfloat16)
-    assert fa_ops.tensor_core_route(q, q, q)
-    assert not fa_ops.tensor_core_route(q.float(), q.float(), q.float())
-    wide = torch.zeros(1, 8, 4, 132, dtype=torch.bfloat16)[..., :128]
-    assert not fa_ops.tensor_core_route(wide, q, q)  # rows off 16 bytes
-    hd256 = torch.zeros(1, 8, 4, 256, dtype=torch.bfloat16)
-    assert not fa_ops.tensor_core_route(hd256, hd256, hd256)
+def _fa_expected_route(case):
+    """The route rule: bf16 at hd 64/128 (every case here has a group of
+    at most 128 and aligned, contiguous tensors) takes wgmma."""
+    dt, hd = case[7], case[4]
+    return "wgmma" if dt == torch.bfloat16 and hd in (64, 128) else \
+        "cuda_core"
+
+
+def _fused_qkv(gen, b, s, hq, hkv, hd, dtype, device):
+    """q, k, v as column slices of one fused (B, S, (Hq + 2 Hkv) hd)
+    projection, as a model's qkv GEMM hands them: q_ss != Hq hd."""
+    qkv = _randn(gen, (b, s, (hq + 2 * hkv) * hd), dtype, device)
+    q = qkv[..., :hq * hd].unflatten(-1, (hq, hd))
+    k = qkv[..., hq * hd:(hq + hkv) * hd].unflatten(-1, (hkv, hd))
+    v = qkv[..., (hq + hkv) * hd:].unflatten(-1, (hkv, hd))
+    return q, k, v
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+# (id, q/k/v builder, route)
+ROUTE_CASES = [
+    ("bf16-hd128", lambda: (_bf16(1, 8, 4, 128),) * 3, "wgmma"),
+    ("fp32", lambda: (_bf16(1, 8, 4, 128).float(),) * 3, "cuda_core"),
+    ("rows-off-16-bytes",  # stride 132: rows off the 16-byte grid
+     lambda: (_bf16(1, 8, 4, 132)[..., :128], _bf16(1, 8, 4, 128),
+              _bf16(1, 8, 4, 128)), "cuda_core"),
+    ("hd256", lambda: (_bf16(1, 8, 4, 256),) * 3, "cuda_core"),
+    ("hd64", lambda: (_bf16(1, 8, 4, 64),) * 3, "wgmma"),
+    ("hd32", lambda: (_bf16(1, 8, 4, 32),) * 3, "cuda_core"),
+    ("group7", lambda: (_bf16(1, 8, 14, 128), _bf16(1, 8, 2, 128),
+                        _bf16(1, 8, 2, 128)), "wgmma"),
+    ("fused-projection-slice",
+     lambda: _fused_qkv(torch.Generator().manual_seed(0), 1, 8, 14, 2, 128,
+                        torch.bfloat16, "cpu"), "wgmma"),
+    ("stride-off-16-bytes",  # sequence stride of 516 elements
+     lambda: (_bf16(1, 8 * 516).as_strided((1, 8, 4, 128),
+                                            (8 * 516, 516, 128, 1)),
+              _bf16(1, 8, 4, 128), _bf16(1, 8, 4, 128)), "cuda_core"),
+    ("base-off-16-bytes",
+     lambda: (_bf16(1 + 8 * 4 * 128)[1:].view(1, 8, 4, 128),
+              _bf16(1, 8, 4, 128), _bf16(1, 8, 4, 128)), "cuda_core"),
+    ("group256", lambda: (_bf16(1, 8, 256, 64), _bf16(1, 8, 1, 64),
+                          _bf16(1, 8, 1, 64)), "cuda_core"),
+]
+
+
+@pytest.mark.parametrize("make,want", [c[1:] for c in ROUTE_CASES],
+                         ids=[c[0] for c in ROUTE_CASES])
+def test_tensor_core_route_choice(make, want):
+    q, k, v = make()
+    assert fa_ops.route(q, k, v) == want
+    assert fa_ops.tensor_core_route(q, k, v) == (want == "wgmma")
 
 
 @pytest.mark.cuda
@@ -283,6 +337,7 @@ def test_flash_kernel_matches_plain_version(cuda, case):
     b, hq, hkv, s, hd, win, pre, dt = case
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (_randn(gen, (b, s, h, hd), dt, cuda) for h in (hq, hkv, hkv))
+    assert fa_ops.route(q, k, v) == _fa_expected_route(case)
     before = fa_ops.flash_attention.launches
     out = fa_ops.flash_attention(q, k, v, window=win, prefix=pre)
     torch.cuda.synchronize()
@@ -291,6 +346,34 @@ def test_flash_kernel_matches_plain_version(cuda, case):
     torch.testing.assert_close(out.float(),
                                _fa_plain(q, k, v, win, pre).float(),
                                **_tol(dt))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_fused_projection_slice(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = _fused_qkv(gen, 2, 300, 28, 4, 128, torch.bfloat16, cuda)
+    assert q.stride(1) != q.shape[2] * q.shape[3]
+    assert fa_ops.route(q, k, v) == "wgmma"
+    out = fa_ops.flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(), _fa_plain(q, k, v).float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refused_launch_raises(cuda, monkeypatch):
+    """A wgmma-route input whose launch the card refuses (more row blocks
+    than the grid's y axis holds: group 128 puts one query position in a
+    CTA, so S = 65536 needs 65536 of them) raises, and nothing falls back
+    to the plain version or to the CUDA-core route."""
+    def no_plain(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+    monkeypatch.setattr(fa_ops, "flash_attention_ref", no_plain)
+    s = 65536
+    q = torch.zeros((1, s, 128, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, s, 1, 64), dtype=torch.bfloat16, device=cuda)
+    assert fa_ops.route(q, k, k) == "wgmma"
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        fa_ops.flash_attention(q, k, k)
 
 
 @pytest.mark.cuda
