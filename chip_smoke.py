@@ -38,10 +38,15 @@ Phases, each printing one JSON line:
    `F.scaled_dot_product_attention` (a yardstick the port never calls)
    beside the bound, at the yi-9b shape and at zamba2's (B=4, S=2048,
    Hq=Hkv=32, hd=64);
-7. decode_attention: the same on the reference's decode cases and at
-   B=8, S=4096 with random lengths (also against fp32, and timed); cache
-   rows past the lengths are filled with NaN and must not change the
-   result; the yardstick is SDPA with a boolean length mask;
+7. decode_attention: the same on the reference's decode cases, the
+   configs' query-head groups (2, 5, 7, 8, 32 and 40 per KV head) and at
+   B=8, S=4096 with random lengths (also against fp32); cache rows past
+   the lengths are filled with NaN and must not change the result;
+   ptxas's spills fail the phase. Timed at S=4096 over DEC_MAIN_COPIES
+   copies of the caches, L2-cold, by events around a replayed CUDA graph
+   of calls (`graph_ms`), beside SDPA with a boolean length mask (the
+   yardstick), the plain version, the bound and the profiler's time; the
+   profiler must see one device kernel per call;
 8. llm_prefill: yi-9b at full width and depth, bf16, random weights drawn
    on the card from a seeded generator; `make_prefill_step(cfg,
    impl="kernel")` on 4 prompts of 2048 tokens must launch
@@ -55,8 +60,9 @@ Phases, each printing one JSON line:
    tokens, and one slot's logits at its last prompt token against the
    prefill path; then `decode_attention` on the run's own caches (8,
    2048, 4, 128) at the schedule's lengths against its plain version
-   (bf16 and fp32) and timed there, which sets its `kernels` row; ms per
-   step, tokens/s beside the weights' floor, and a profile;
+   (bf16 and fp32) and timed there, L2-cold over all 48 layers' caches
+   as phase 7 times it, which sets its `kernels` row; ms per step,
+   tokens/s beside the weights' floor, and a profile;
 10. ssd_scan: the kernel against its plain PyTorch version (fp32, as the
    op runs it on the CPU, cast to the input type) on the reference kernel
    tests' cases, chunks that are not powers of two and the two prefill
@@ -84,7 +90,7 @@ Phases, each printing one JSON line:
    `decode_attention` launches per step, logits held against a
    decode_step(impl="reference") run fed the same tokens, and
    `decode_attention` on the run's own shared-block caches (8, 2048, 32,
-   64) against its plain version;
+   64) against its plain version, timed over the 6 of them;
 15. gossip_combine: the kernel against its plain version, bit for bit
    (`torch.equal`), on the reference kernel tests' cases, T = 65537,
    T = 0, bf16, and K = 1..6 at odd T with rows off the 16-byte grid,
@@ -101,6 +107,10 @@ Phases, each printing one JSON line:
    of sum_j |A_ij w_j|; isolated reads only the stale buffers), then
    RING_ROUNDS timed rounds per state (ms per round, bytes per round,
    the kernel's share, peak memory) and a profile of an overlay round.
+
+`python3 chip_smoke.py --decode-bench DIR` instead times only the
+decode kernel of the port under DIR/src at the three decode shapes
+(`decode_bench`), so that two commits compare in one call.
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Any
@@ -430,6 +440,14 @@ DEC_CASES = [
     (2, 16, 4, 200, 128, "float32"),  # ragged blocks
     (1, 4, 4, 96, 32, "bfloat16"),    # MHA bf16
     (8, 32, 32, 2048, 64, "bfloat16"),  # zamba2's shared block, 8 slots
+    # the configs' groups: 2 (gemma3), 5 (qwen2.5-14b), 7 (qwen2-7b); MQA
+    # with 32 heads (4 n8 tiles); 40 heads (a second CTA on grid z); hd 256
+    (2, 4, 2, 300, 128, "bfloat16"),
+    (2, 10, 2, 333, 128, "bfloat16"),
+    (1, 28, 4, 700, 128, "bfloat16"),
+    (2, 32, 1, 520, 64, "bfloat16"),
+    (1, 40, 1, 260, 32, "bfloat16"),
+    (2, 8, 2, 300, 256, "bfloat16"),
 ]
 DEC_MAIN = (8, 32, 4, 4096, 128, "bfloat16")        # yi-9b decode, 8 slots
 
@@ -644,12 +662,17 @@ def phase_flash_attention(torch, ctx):
          zamba2=dict(shape=list(FA_ZAMBA2[:5]), **zamba2))
 
 
+def _dec_caches(torch, case, gen):
+    b, hq, hkv, s, hd, dt = case
+    return tuple(torch.randn((b, s, hkv, hd), generator=gen, device="cuda")
+                 .to(getattr(torch, dt)) for _ in range(2))
+
+
 def _dec_inputs(torch, case, gen):
     b, hq, hkv, s, hd, dt = case
-    dtype = getattr(torch, dt)
-    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
-    k, v = (torch.randn((b, s, hkv, hd), generator=gen,
-                        device="cuda").to(dtype) for _ in range(2))
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(
+        getattr(torch, dt))
+    k, v = _dec_caches(torch, case, gen)
     lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
                             dtype=torch.int32)
     return q, k, v, lengths
@@ -664,8 +687,14 @@ def _dec_plain(q, k, v, lengths):
 
 
 def phase_decode_attention(torch, ctx):
+    from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops
 
+    ptxas = ptxas_functions(build.PTXAS_LOG.get("decode_attention", ""))
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        raise AssertionError(f"decode_attention: the kernels spill: {spills}")
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     for case in DEC_CASES + [DEC_MAIN]:
@@ -687,50 +716,149 @@ def phase_decode_attention(torch, ctx):
                                              v.float(), lengths),
                       "decode_attention", f"decode_attention {DEC_MAIN}")
     ctx["decode_attention_errs"] = errs
-    timing = _decode_timing(torch, ctx, q, k, v, lengths.cpu())
-    emit(phase="decode_attention", ok=True, max_abs_diff=errs,
+    sets = [(q, k, v)] + [(q, *_dec_caches(torch, DEC_MAIN, gen))
+                          for _ in range(DEC_MAIN_COPIES - 1)]
+    timing = _decode_timing(torch, ctx, sets, lengths.cpu())
+    emit(phase="decode_attention", ok=True, ptxas=ptxas, max_abs_diff=errs,
          vs_fp32_plain=fp32,
          fp32_row_rel_tol=FP32_ROW_REL_TOL["decode_attention"], **timing)
 
 
-def _decode_timing(torch, ctx, q, k, v, lens_host) -> dict:
-    """Times of the decode kernel (called as the decode step calls it,
-    with its lengths on the host and on the card), its plain version and
-    SDPA with a boolean length mask, beside the bound for the cache rows
-    these lengths make visible."""
+#: calls per CUDA graph in the L2-cold timing (at least one per cache set)
+GRAPH_CALLS = 24
+#: copies of DEC_MAIN's caches cycled by its timing: at its random lengths
+#: their visible rows (18-40 MB a copy) exceed the 50 MB L2
+DEC_MAIN_COPIES = 4
+
+
+def graph_ms(torch, calls, replays: int = 5) -> float:
+    """Device ms per call of ``calls`` (argument-less callables, each on
+    its own inputs), cycled to at least GRAPH_CALLS calls, captured in one
+    CUDA graph and replayed between CUDA events. The host's launch rate
+    does not enter the time, and when the calls' inputs together exceed
+    the L2 cache each call finds its own inputs cold, as a decode step
+    finds each layer's cache."""
+    seq = [calls[i % len(calls)]
+           for i in range(max(GRAPH_CALLS, len(calls)))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in seq:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * len(seq))
+    del graph
+    return ms
+
+
+def device_ops_per_call(torch, fn, iters: int = 10) -> tuple[list, set]:
+    """Device operations (kernels, copies, fills) the profiler sees per
+    call of ``fn`` in each of three profiles (a synchronise after each
+    call), and the names of all of them. The profiler now and then drops
+    the records of short kernels (PERF.md), so a reading can fall short
+    of the truth; it cannot exceed it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen, names = [], set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+                torch.cuda.synchronize()
+        ops = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+        seen.append(sum(ev.count for ev in ops) / iters)
+        names.update(ev.key for ev in ops)
+    return seen, names
+
+
+def _decode_timing(torch, ctx, sets, lens_host, *, plain=True,
+                   one_kernel=True) -> dict:
+    """Times of the decode kernel, called as the decode step calls it
+    (lengths on the host and on the card), on ``sets``, a list of (q, k,
+    v) of one shape that share ``lens_host``; of SDPA with a boolean
+    length mask (a yardstick the port never calls) and of the plain
+    version, all by `graph_ms` over the sets in turn; beside the bound
+    for the cache rows these lengths make visible. The profiler's time
+    of the kernel on the first set stays beside them
+    (`kernel_ms_profiler`), and with ``one_kernel`` the profiler must see
+    one device kernel per call: one kernel name in all, and in each
+    profile some operations but never more than one per call (records
+    it drops can only lower a reading)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops
+    q, k, v = sets[0]
     b, hq, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
     lens_dev = lens_host.to("cuda", torch.int32)
-    kernel_ms = device_ms(torch, lambda: ops.decode_attention(
-        q, k, v, lens_host, lengths_dev=lens_dev), 20, name="decode_")
-    call_ms = cuda_ms(torch, lambda: ops.decode_attention(
-        q, k, v, lens_host, lengths_dev=lens_dev), 20)
-    plain_ms = device_ms(torch, lambda: _dec_plain(q, k, v, lens_dev), 10)
+
+    def kernel(q, k, v):
+        return lambda: ops.decode_attention(q, k, v, lens_host,
+                                            lengths_dev=lens_dev)
+
     mask = (torch.arange(s, device="cuda")[None, :]
             < lens_dev[:, None])[:, None, None, :]
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-        enable_gqa=True)
-    library_ms = device_ms(torch, sdpa, 20)
-    lib_err = float((sdpa()[:, :, 0].float()
-                     - ops.decode_attention(q, k, v, lens_host).float())
-                    .abs().max())
+
+    def sdpa(q, k, v):
+        return lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    kernel_ms = graph_ms(torch, [kernel(*x) for x in sets])
+    library_ms = graph_ms(torch, [sdpa(*x) for x in sets])
+    plain_ms = (graph_ms(torch, [(lambda x=x: _dec_plain(*x, lens_dev))
+                                 for x in sets], replays=2)
+                if plain else None)
+    seen, names = device_ops_per_call(torch, kernel(q, k, v))
+    per_call = max(seen)
+    if one_kernel and (per_call > 1 or min(seen) <= 0 or len(names) != 1):
+        raise AssertionError(f"decode_attention: the profiler saw {seen} "
+                             f"device operations per call ({names}), not "
+                             "one kernel")
+    profiler_ms = device_ms(torch, kernel(q, k, v), 20, name="decode_")
+    lib_err = float((sdpa(q, k, v)()[:, :, 0].float()
+                     - kernel(q, k, v)().float()).abs().max())
     rows = int(lens_host.sum())            # cache rows this run must read
     nbytes = 2 * (2 * rows * hkv * hd + 2 * b * hq * hd) + 4 * b
     flops = 4 * rows * hq * hd
     bw, _, rate_key = card_rates(ctx["kind"])
     peak = bf16_peak(ctx["kind"])
     bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    shape = dict(b=b, s=s, hq=hq, hkv=hkv, hd=hd,
+                 dtype=str(q.dtype).split(".")[-1],
+                 lengths=lens_host.tolist(), cache_sets=len(sets),
+                 visible_mb_all_sets=len(sets) * nbytes / 1e6)
+    if hasattr(ops, "num_splits"):  # not in an older commit's op
+        shape["nsplit"] = ops.num_splits(
+            b, hkv, s, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
     return dict(
-        shape=dict(b=b, s=s, hq=hq, hkv=hkv, hd=hd,
-                   dtype=str(q.dtype).split(".")[-1],
-                   lengths=lens_host.tolist(), chunk=ops.CHUNK),
-        kernel_ms=kernel_ms, call_ms_events=call_ms, plain_ms=plain_ms,
-        library_ms=library_ms, library_max_abs_diff=lib_err,
-        bound_ms=max(bytes_ms, ops_ms),
+        shape=shape, timing="CUDA graph of >= 20 calls cycling the cache "
+        "sets, replayed between events", kernel_ms=kernel_ms,
+        kernel_ms_profiler=profiler_ms, device_ops_per_call=per_call,
+        device_ops_per_call_profiles=seen, device_ops=sorted(names),
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_max_abs_diff=lib_err, bound_ms=bound_ms,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_share=bound_ms / kernel_ms,
         bytes=nbytes, bytes_all_s=2 * 2 * b * s * hkv * hd, flops=flops,
         rates=dict(card=rate_key, hbm_bytes_per_s=bw, bf16_flop_per_s=peak),
         achieved_gb_per_s=nbytes / kernel_ms / 1e6)
@@ -959,8 +1087,9 @@ def _decode_live_check(torch, ctx, cfg, kv, lens_at, *, label="layer",
     ((L, 8, 2048, Hkv, hd)) of the first and last entries, at the lengths
     the schedule gave an early step, the last prompt token and the last
     generating step, against its plain version (bf16, `_tol`) and the
-    plain version in fp32; then its times at the last step's lengths,
-    which set the kernel's row when ``row``."""
+    plain version in fp32; then its times at the last step's lengths
+    over every entry's caches, which set the kernel's row when
+    ``row``."""
     from repro_torch.kernels.decode_attention import ops
     gen = torch.Generator(device="cuda").manual_seed(5)
     b = kv["k"].shape[1]
@@ -982,8 +1111,9 @@ def _decode_live_check(torch, ctx, cfg, kv, lens_at, *, label="layer",
             fp32[key] = _hold_fp32(
                 torch, got, _dec_plain(q.float(), kc.float(), vc.float(),
                                        lens_dev), "decode_attention", what)
-    timing = _decode_timing(torch, ctx, query(), kv["k"][0], kv["v"][0],
-                            lens_at["generating"])
+    timing = _decode_timing(
+        torch, ctx, [(query(), kv["k"][i], kv["v"][i])
+                     for i in range(kv["k"].shape[0])], lens_at["generating"])
     if not row:
         return dict(lengths={k: v.tolist() for k, v in lens_at.items()},
                     max_abs_diff=errs, vs_fp32_plain=fp32, **timing)
@@ -1705,7 +1835,7 @@ def phase_ring_gossip(torch, ctx):
 
 #: Name stems of the port's hand-written kernels in a profile.
 HAND_WRITTEN = ("edge_aggregate", "gossip_combine", "flash_fwd",
-                "decode_split", "decode_combine", "ssd_scan")
+                "decode_attn", "ssd_scan")
 
 
 def profile_window(torch, fn, iters: int, unprofiled_ms: float) -> dict:
@@ -1751,7 +1881,50 @@ def _kernel_row(ctx, name, replaces) -> dict:
                 launches=ctx["launches"].get(name, 0), **ctx[name])
 
 
+def decode_bench(torch, src: Path) -> int:
+    """``python3 chip_smoke.py --decode-bench DIR`` times the decode
+    kernel of the port under DIR/src (this checkout, or another commit
+    unpacked into a directory that .gitignore lists, so that two commits
+    compare in one call) by `_decode_timing` at the three decode shapes,
+    on random bf16 caches: yi-9b's 48 layers (8, 2048, 4, 128) and
+    zamba2's 6 shared-block caches (8, 2048, 32, 64) at the decode runs'
+    last lengths, and DEC_MAIN_COPIES copies of DEC_MAIN at seeded random
+    lengths. Prints one JSON line."""
+    sys.path.insert(0, str(src / "src"))
+    from repro_torch.kernels.decode_attention import ops
+    ctx = {"kind": torch.cuda.get_device_name(0), "smi": nvidia_smi_line()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    # the decode runs' last generating step: prompt + DECODE_NEW - 1 tokens
+    live = torch.tensor([n + DECODE_NEW - 1 for n in DECODE_PROMPTS],
+                        dtype=torch.int32)
+    main_lens = torch.randint(1, DEC_MAIN[3] + 1, (DEC_MAIN[0],),
+                              generator=torch.Generator().manual_seed(7),
+                              dtype=torch.int32)
+    shapes = {"yi-9b decode": ((8, 32, 4, 2048, 128, "bfloat16"), 48, live),
+              "DEC_MAIN": (DEC_MAIN, DEC_MAIN_COPIES, main_lens),
+              "zamba2 decode": ((8, 32, 32, 2048, 64, "bfloat16"), 6, live)}
+    out = {}
+    for name, (case, n, lens) in shapes.items():
+        b, hq, _, _, hd, dt = case
+        sets = [(torch.randn((b, hq, hd), generator=gen, device="cuda")
+                 .to(getattr(torch, dt)), *_dec_caches(torch, case, gen))
+                for _ in range(n)]
+        out[name] = _decode_timing(torch, ctx, sets, lens, plain=False,
+                                   one_kernel=False)
+        del sets
+        torch.cuda.empty_cache()
+    print(json.dumps({"decode_bench": str(src), "ops": ops.__file__,
+                      "nvidia_smi": ctx["smi"], "shapes": out}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--decode-bench":
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        return decode_bench(torch, Path(sys.argv[2]).resolve())
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)

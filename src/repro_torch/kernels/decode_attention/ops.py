@@ -7,8 +7,10 @@ to the plain PyTorch version (`ref.py`, handed a transposed view);
 tensors on a card go to the CUDA kernel (`csrc/decode_attention.cu`),
 which reads the caches through their strides and never copies them. It
 never falls back from one to the other, and any other device raises.
-`decode_attention.launches` counts kernel launches (one per call: the
-split pass and its combine pass).
+`decode_attention.launches` counts kernel launches: one per call, a
+single kernel whose `num_splits` CTAs per (sequence, KV head) form a
+thread-block cluster and combine their parts inside it, with no
+workspace in device memory.
 
 `lengths` must lie in 1..S. It may be a CPU tensor even when the caches
 are on the card: it is then checked on the host and copied over
@@ -32,15 +34,37 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 _KERNEL = "decode_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-#: cache rows per split (one warp's share of a sequence)
-CHUNK = 128
+#: cache rows per TMA tile; a split's rows are a whole number of tiles
+TILE = 64
+#: largest portable thread-block cluster, so at most this many splits
+MAX_SPLITS = 8
+_CU_RESULT_BASE = 10000  # the kernel's code for a failed tensor-map encode
+
+
+def num_splits(b: int, hkv: int, s: int, sms: int) -> int:
+    """CTAs per (sequence, KV head), from the shapes alone: enough for
+    about two per SM over the B*Hkv clusters, at most MAX_SPLITS, and no
+    more than the cache has tiles. Each CTA then takes ceil(len / nsplit)
+    rows of its sequence, rounded up to the tile."""
+    return min(MAX_SPLITS, max(1, -(-2 * sms // (b * hkv))), -(-s // TILE))
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(_KERNEL)
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + \
+        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -138,24 +162,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, hq, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    num_splits = -(-s // CHUNK)
-    ws = torch.empty((2 + hd) * b * hkv * num_splits * group,
-                     dtype=torch.float32, device=q.device)
-    n = b * hkv * num_splits * group
-    ws_m, ws_l, ws_acc = ws[:n], ws[n:2 * n], ws[2 * n:]
-    dims = (ctypes.c_int64 * 14)(
+    nsplit = num_splits(b, hkv, s, _sms(q.device))
+    dims = (ctypes.c_int64 * 13)(
         b, s, hkv, group, *q.stride()[:2], *k.stride()[:3], *v.stride()[:3],
-        CHUNK, num_splits)
+        nsplit)
     with torch.cuda.device(q.device):
         rc = _library().decode_attention_fwd(
             _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lengths.data_ptr(), ws_m.data_ptr(), ws_l.data_ptr(),
-            ws_acc.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(),
             ctypes.cast(dims, ctypes.c_void_p), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
-    decode_attention.launches += 1
+    if rc >= _CU_RESULT_BASE:
+        raise RuntimeError(f"decode_attention: tensor-map encoding failed, "
+                           f"CUresult {rc - _CU_RESULT_BASE}")
     if rc != 0:
         raise RuntimeError(f"decode_attention: launch failed, cudaError {rc}")
+    decode_attention.launches += 1
     return out
 
 

@@ -186,6 +186,24 @@ def test_flash_rejects_sq_not_sk():
                                torch.zeros(1, 8, 2, 32))
 
 
+@pytest.mark.parametrize("b,hkv,s,sms,want", [
+    (8, 4, 2048, 132, 8),    # yi-9b decode: 32 clusters, capped at 8
+    (8, 4, 4096, 132, 8),    # DEC_MAIN
+    (8, 32, 2048, 132, 2),   # zamba2's shared block: 256 clusters
+    (1, 1, 2048, 132, 8),    # B = 1, Hkv = 1
+    (1, 1, 100, 132, 2),     # no more splits than 64-row tiles
+    (1, 1, 64, 132, 1),
+    (16, 32, 2048, 132, 1),  # more clusters than twice the SMs
+    (8, 4, 2048, 114, 8),    # an H100 PCIe's SMs
+    (8, 16, 2048, 66, 2),
+])
+def test_num_splits(b, hkv, s, sms, want):
+    """CTAs per (sequence, KV head): min(8, max(1, ceil(2 SMs / (B Hkv))),
+    ceil(S / 64)), from the shapes alone."""
+    assert dec_ops.num_splits(b, hkv, s, sms) == want
+    assert dec_ops.TILE == 64 and dec_ops.MAX_SPLITS == 8
+
+
 @pytest.mark.parametrize("bad", [[0, 3], [2, 17]])
 def test_decode_rejects_lengths_outside_cache(bad):
     q = torch.zeros(2, 4, 32)

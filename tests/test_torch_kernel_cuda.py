@@ -238,6 +238,16 @@ DEC_CASES = [
     (1, 4, 4, 96, 32, torch.bfloat16),
     (8, 32, 4, 4096, 128, torch.bfloat16),
     (2, 8, 2, 300, 256, torch.bfloat16),          # hd=256
+    # groups of the configs: G=2 (gemma3, granite), 5 (qwen2.5-14b), 7
+    # (qwen2-7b); MQA with G=32 (4 n8 tiles over the same K/V tiles); G=40
+    # (a second CTA along grid z)
+    (2, 4, 2, 300, 128, torch.bfloat16),
+    (2, 10, 2, 333, 128, torch.bfloat16),
+    (1, 28, 4, 700, 128, torch.bfloat16),
+    (2, 32, 1, 520, 64, torch.bfloat16),
+    (1, 40, 1, 260, 32, torch.bfloat16),
+    (2, 32, 1, 130, 256, torch.float32),
+    (2, 8, 2, 96, 32, torch.bfloat16),           # hd=32, 64-byte swizzle
 ]
 
 
@@ -412,6 +422,98 @@ def test_decode_kernel_matches_plain_version(cuda, case):
     torch.testing.assert_close(
         dec_ops.decode_attention(q, nan_k, nan_v, lengths), out, rtol=0,
         atol=0)
+
+
+def _dec_ref(q, k, v, lengths):
+    return decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_decode_kernel_split_edges(cuda, dt):
+    """Lengths 1 and S, a length on a split boundary (nsplit whole tiles)
+    and one row past it, and lengths under nsplit (CTAs of the cluster
+    with no rows), on the same caches; bit-identical over two runs."""
+    b, hq, hkv, s, hd = 7, 16, 2, 1024, 128
+    nsplit = dec_ops.num_splits(b, hkv, s, dec_ops._sms(cuda))
+    assert nsplit == 8
+    edge = nsplit * dec_ops.TILE
+    lengths = torch.tensor([1, s, edge, edge + 1, 3, nsplit - 1, 65],
+                           dtype=torch.int32)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(gen, (b, hq, hd), dt, cuda)
+    k, v = (_randn(gen, (b, s, hkv, hd), dt, cuda) for _ in range(2))
+    out = dec_ops.decode_attention(q, k, v, lengths)
+    again = dec_ops.decode_attention(q, k, v, lengths)
+    torch.testing.assert_close(again, out, rtol=0, atol=0)
+    torch.testing.assert_close(out.float(),
+                               _dec_ref(q, k, v, lengths.to(cuda)).float(),
+                               **_tol(dt))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_reads_a_layer_of_a_stacked_cache(cuda):
+    """A layer of an (L, B, S, Hkv, hd) cache, as the decode step hands
+    it: read in place through its strides, same result as a copy."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = _randn(gen, (4, 16, 128), torch.bfloat16, cuda)
+    kv = _randn(gen, (2, 3, 4, 640, 4, 128), torch.bfloat16, cuda)
+    k, v = kv[0, 2], kv[1, 2]
+    lengths = torch.tensor([5, 640, 300, 129], dtype=torch.int32)
+    out = dec_ops.decode_attention(q, k, v, lengths)
+    torch.testing.assert_close(
+        dec_ops.decode_attention(q, k.contiguous(), v.contiguous(), lengths),
+        out, rtol=0, atol=0)
+    torch.testing.assert_close(out.float(),
+                               _dec_ref(q, k, v, lengths.to(cuda)).float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refused_launch_raises(cuda, monkeypatch):
+    """A cluster past the portable 8 CTAs (16) is refused at launch and
+    raises, and nothing falls back to the plain version."""
+    def no_plain(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+    monkeypatch.setattr(dec_ops, "decode_attention_ref", no_plain)
+    monkeypatch.setattr(dec_ops, "num_splits", lambda *args: 16)
+    q = torch.zeros((1, 8, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 2048, 1, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dec_ops.decode_attention(q, k, k, torch.tensor([2048]))
+
+
+@pytest.mark.cuda
+def test_gemma3_decode_kernel_matches_reference_impl(cuda):
+    """Reduced gemma3-27b on the card (window 16, a global layer every
+    2nd: G=2 against a 16-row ring cache and a 32-row one), 24 steps from
+    positions (0, 5): impl="kernel" against impl="reference"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(reduce(get_config("gemma3_27b")),
+                              sliding_window=16, global_every=2)
+    assert cfg.num_heads // cfg.num_kv_heads == 2
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    b, steps = 2, 24
+    toks = torch.randint(0, cfg.vocab_size, (b, steps), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    states = [tf.init_decode_state(cfg, b, 32, dtype=torch.float32,
+                                   device=cuda) for _ in range(2)]
+    for st in states:
+        st.position = torch.tensor([0, 5])
+    for t in range(steps):
+        before = dec_ops.decode_attention.launches
+        got, states[0] = tf.decode_step(params, cfg, toks[:, t:t + 1],
+                                        states[0], impl="kernel")
+        assert dec_ops.decode_attention.launches == before + cfg.num_layers
+        want, states[1] = tf.decode_step(params, cfg, toks[:, t:t + 1],
+                                         states[1], impl="reference")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

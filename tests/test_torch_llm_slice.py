@@ -221,6 +221,27 @@ def test_decode_ring_buffer_wraps():
                  _tokens(pcfg, (2, 12), seed=5), [0, 3], max_seq=16)
 
 
+def test_gemma3_decode_matches_reference():
+    """Reduced gemma3-27b (window 16, a global layer every 2nd): 24 steps
+    from positions (0, 5) in a 32-slot cache, so the local layers' 16-row
+    ring buffers wrap while the global layers' caches fill, against the
+    reference's `decode_step`; max |logit difference| <= 1e-4."""
+    rcfg, pcfg, rparams, pparams = _setup("gemma3_27b", seed=11,
+                                          sliding_window=16, global_every=2)
+    assert [g[1:] for g in ptf.kv_group_spec(pcfg, 32)] == \
+        [g[1:] for g in rtf.kv_group_spec(rcfg, 32)] == [(16, 16), (32, 0)]
+
+    def within_1e4(got, want, msg=""):
+        err = float(np.abs(got - want).max())
+        assert err <= 1e-4, (msg, err)
+
+    before = dec_ops.decode_attention.launches
+    _decode_both(rcfg, pcfg, rparams, pparams,
+                 _tokens(pcfg, (2, 24), seed=12), [0, 5], max_seq=32,
+                 rimpls=("reference",), tol=within_1e4)
+    assert dec_ops.decode_attention.launches == before  # CPU
+
+
 def test_qkv_bias_variant():
     """Reduced qwen2-7b (biased q/k/v projections), prefill and decode."""
     rcfg, pcfg, rparams, pparams = _setup("qwen2_7b", seed=3)
