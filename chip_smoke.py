@@ -63,14 +63,19 @@ Phases, each printing one JSON line:
    (bf16 and fp32) and timed there, L2-cold over all 48 layers' caches
    as phase 7 times it, which sets its `kernels` row; ms per step,
    tokens/s beside the weights' floor, and a profile;
-10. ssd_scan: the kernel against its plain PyTorch version (fp32, as the
-   op runs it on the CPU, cast to the input type) on the reference kernel
-   tests' cases, chunks that are not powers of two and the two prefill
-   shapes, mamba2-370m (4, 2048, 32, 64, n 128) and zamba2-1.2b (4, 2048,
-   64, 64, n 64), bf16, with x, B and C strided as the model hands them,
-   within `_tol`; at the prefill shapes also per row against the fp32
-   plain version (FP32_ROW_REL_TOL) and timed beside the plain version
-   and the bound (no PyTorch call computes the scan: no library time);
+10. ssd_scan: ptxas's spills of the bf16 kernels fail the phase; the
+   kernel against its plain PyTorch version (fp32, as the op runs it on
+   the CPU, cast to the input type) on the reference kernel tests' cases,
+   chunks that are not powers of two and the two prefill shapes,
+   mamba2-370m (4, 2048, 32, 64, n 128) and zamba2-1.2b (4, 2048, 64, 64,
+   n 64), bf16, with x, B and C strided as the model hands them, within
+   `_tol`; at the prefill shapes also per row against the fp32 plain
+   version (FP32_ROW_REL_TOL) and timed L2-cold by events around a
+   replayed CUDA graph of calls cycling SSD_TIMING_SETS input sets
+   (`graph_ms`), beside back-to-back calls (`kernel_ms_eager`), the
+   profiler's time and its device time per pass (the set of kernel names
+   a call launches must be SSD_PASSES), the plain version and the bound
+   (no PyTorch call computes the scan: no library time);
 11. ssm_prefill: mamba2-370m at full width and depth, bf16, random
    weights from seed 0, `make_prefill_step` on 4 prompts of 2048 tokens:
    48 `ssd_scan` launches, logits against impl="reference" on the same
@@ -110,7 +115,8 @@ Phases, each printing one JSON line:
 
 `python3 chip_smoke.py --decode-bench DIR` instead times only the
 decode kernel of the port under DIR/src at the three decode shapes
-(`decode_bench`), so that two commits compare in one call.
+(`decode_bench`), and `--ssd-bench DIR` only the SSD scan at the two
+prefill shapes (`ssd_bench`), so that two commits compare in one call.
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Any
@@ -1209,26 +1215,77 @@ def _ssd_check(torch, x, dt, A, B, C, chunk, what, fp32=False) -> dict:
     return out
 
 
-def _ssd_timing(torch, ctx, x, dt, A, B, C, chunk) -> dict:
-    """Times of the kernel and its plain version by events, beside the
-    bound: each input read once and y written once, and the multiply-adds
-    the chunked scan needs (the causal half of C.B^T and of its product
-    with dt*x in every chunk; C @ state^T and the state update across
-    each chunk boundary), at the bf16 tensor-core peak. No single PyTorch
-    call computes the SSD scan, so there is no library time. Beside them,
-    the kernel's time as `device_ms` reads it from the profiler: on an
-    H100 that read about 0.6 of the events' time, while the prefill's
-    own profile, 48 launches, agrees with the events."""
+#: input sets the SSD timing cycles: one set (x, B and C in one buffer,
+#: dt, A) is about 36 MB at mamba2 and 69 MB at zamba2, so two exceed the
+#: 50 MB L2 and each call finds its inputs cold, as a layer of the
+#: prefill does
+SSD_TIMING_SETS = 2
+#: the profiler's names of the kernels one bf16 call launches: passes (a)
+#: chunk states, (b) state passing and (c) chunk scan
+SSD_PASSES = {"ssd_scan_states_bf16", "ssd_scan_passing",
+              "ssd_scan_chunks_bf16"}
+
+
+def device_ms_by_kernel(torch, fn, iters: int, stem: str) -> dict:
+    """Device ms per call of ``fn`` by kernel, for the kernels whose
+    names hold ``stem`` (the C++ name without namespace, template and
+    arguments), over one profile of ``iters`` calls. A kernel missing from
+    the profile reads as absent: the profiler drops records of short
+    kernels now and then (PERF.md)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.key_averages():
+        m = re.search(rf"({stem}\w*)", ev.key)
+        if ev.device_type == DeviceType.CUDA and m:
+            out[m.group(1)] = (out.get(m.group(1), 0.0)
+                               + ev.self_device_time_total / 1e3 / iters)
+    return out
+
+
+def _ssd_timing(torch, ctx, sets, chunk, *, plain=True,
+                passes=None) -> dict:
+    """Times of the kernel on ``sets`` (lists of x, dt, A, B, C of one
+    shape), L2-cold by `graph_ms` over the sets in turn (`kernel_ms`);
+    beside it back-to-back calls on the first set timed by events
+    (`kernel_ms_eager`), the profiler's time (`kernel_ms_profiler`) and
+    its device time by kernel (`passes_ms`; with ``passes`` the names must
+    be those), and the plain version's time. The bound: each input read
+    once and y written once, and the multiply-adds the chunked scan needs
+    (the causal half of C.B^T and of its product with dt*x in every
+    chunk; C @ state^T and the state update across each chunk boundary),
+    at the bf16 tensor-core peak. No single PyTorch call computes the SSD
+    scan, so there is no library time."""
     from repro_torch.kernels.ssd_scan import ops
+    x, dt, A, B, C = sets[0]
     b, s, h, p = x.shape
     n = B.shape[2]
-    kernel_ms = cuda_ms(torch, lambda: ops.ssd_scan(x, dt, A, B, C,
-                                                    chunk=chunk), 10)
-    profiler_ms = device_ms(torch, lambda: ops.ssd_scan(x, dt, A, B, C,
-                                                        chunk=chunk), 10,
-                            name="ssd_scan")
-    plain_ms = cuda_ms(torch, lambda: _ssd_plain(torch, x, dt, A, B, C,
-                                                 chunk), 3, warmup=1)
+
+    def call(xs):
+        return lambda: ops.ssd_scan(*xs, chunk=chunk)
+
+    kernel_ms = graph_ms(torch, [call(xs) for xs in sets])
+    eager_ms = cuda_ms(torch, call(sets[0]), 10)
+    profiler_ms = device_ms(torch, call(sets[0]), 10, name="ssd_scan")
+    for _ in range(3):  # now and then a profile comes back without kernels
+        by_kernel = device_ms_by_kernel(torch, call(sets[0]), 10,
+                                        "ssd_scan")
+        if passes is None or set(by_kernel) == passes:
+            break
+    else:
+        raise AssertionError(f"ssd_scan: one call launched {sorted(by_kernel)}"
+                             f", not {sorted(passes)}")
+    plain_ms = (cuda_ms(torch, lambda: _ssd_plain(torch, x, dt, A, B, C,
+                                                  chunk), 3, warmup=1)
+                if plain else None)
     q = ops.chunk_for(s, chunk)
     nc = -(-s // q)
     macs = b * h * (nc * q * (q + 1) // 2 * (n + p)
@@ -1240,12 +1297,17 @@ def _ssd_timing(torch, ctx, x, dt, A, B, C, chunk) -> dict:
     bw, fp32_rate, rate_key = card_rates(ctx["kind"])
     peak = bf16_peak(ctx["kind"])
     bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     return dict(
         shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=q,
                    dtype=str(x.dtype).split(".")[-1]),
-        kernel_ms=kernel_ms, kernel_ms_profiler=profiler_ms,
-        plain_ms=plain_ms, library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+        timing="CUDA graph of >= 24 calls cycling the input sets, replayed "
+        "between events", input_sets=len(sets),
+        kernel_ms=kernel_ms, kernel_ms_eager=eager_ms,
+        kernel_ms_profiler=profiler_ms, passes_ms=by_kernel,
+        plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_share=bound_ms / kernel_ms,
         bytes=nbytes, flops=flops, fp32_cuda_core_ms=flops / fp32_rate * 1e3,
         rates=dict(card=rate_key, hbm_bytes_per_s=bw, bf16_flop_per_s=peak,
                    fp32_flop_per_s=fp32_rate),
@@ -1253,6 +1315,12 @@ def _ssd_timing(torch, ctx, x, dt, A, B, C, chunk) -> dict:
 
 
 def phase_ssd_scan(torch, ctx):
+    from repro_torch.kernels import build
+    ptxas = ptxas_functions(build.PTXAS_LOG.get("ssd_scan", ""))
+    spills = {k: v for k, v in ptxas.items() if "bf16" in k
+              and (v.get("spill_stores") or v.get("spill_loads"))}
+    if spills:
+        raise AssertionError(f"ssd_scan: the bf16 kernels spill: {spills}")
     gen = torch.Generator(device="cuda").manual_seed(6)
     errs, fp32, timing = {}, {}, {}
     for case in SSD_CASES:
@@ -1265,15 +1333,19 @@ def phase_ssd_scan(torch, ctx):
                          fp32=True)
         errs[str(case)] = res.pop("max_abs_diff")
         fp32[name] = res
-        timing[name] = _ssd_timing(torch, ctx, x, dt, A, B, C, case[5])
-        del x, dt, A, B, C
+        sets = [(x, dt, A, B, C)] + [_ssd_inputs(torch, case, gen)
+                                     for _ in range(SSD_TIMING_SETS - 1)]
+        timing[name] = _ssd_timing(torch, ctx, sets, case[5],
+                                   passes=SSD_PASSES)
+        del x, dt, A, B, C, sets
     m = timing["mamba2-370m"]
     ctx["ssd_scan"] = dict(
         max_abs_err=max(errs.values()), ms=m["kernel_ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
         bound_by=m["bound_by"], library_ms=None)
     ctx["ssd_scan_errs"] = errs
-    emit(phase="ssd_scan", ok=True, max_abs_diff=errs, vs_fp32_plain=fp32,
+    emit(phase="ssd_scan", ok=True, ptxas=ptxas, max_abs_diff=errs,
+         vs_fp32_plain=fp32,
          fp32_row_rel_tol=FP32_ROW_REL_TOL["ssd_scan"], timing=timing,
          library="none: no single PyTorch call computes the SSD scan")
     torch.cuda.empty_cache()
@@ -1918,13 +1990,38 @@ def decode_bench(torch, src: Path) -> int:
     return 0
 
 
+def ssd_bench(torch, src: Path) -> int:
+    """``python3 chip_smoke.py --ssd-bench DIR`` times the SSD scan of the
+    port under DIR/src (this checkout, or another commit unpacked into a
+    directory that .gitignore lists, so that two commits compare in one
+    call) by `_ssd_timing` at both SSD_MAIN shapes, on SSD_TIMING_SETS
+    seeded input sets each. Prints one JSON line."""
+    sys.path.insert(0, str(src / "src"))
+    from repro_torch.kernels.ssd_scan import ops
+    ctx = {"kind": torch.cuda.get_device_name(0), "smi": nvidia_smi_line()}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, case in SSD_MAIN.items():
+        sets = [_ssd_inputs(torch, case, gen)
+                for _ in range(SSD_TIMING_SETS)]
+        out[name] = _ssd_timing(torch, ctx, sets, case[5], plain=False)
+        del sets
+        torch.cuda.empty_cache()
+    print(json.dumps({"ssd_bench": str(src), "ops": ops.__file__,
+                      "nvidia_smi": ctx["smi"], "shapes": out}), flush=True)
+    return 0
+
+
+BENCHES = {"--decode-bench": decode_bench, "--ssd-bench": ssd_bench}
+
+
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--decode-bench":
+    if len(sys.argv) == 3 and sys.argv[1] in BENCHES:
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
-        return decode_bench(torch, Path(sys.argv[2]).resolve())
+        return BENCHES[sys.argv[1]](torch, Path(sys.argv[2]).resolve())
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)

@@ -9,12 +9,18 @@ state exact and the valid rows unchanged. dt and A are upcast to fp32,
 as the TPU kernel does, and y comes back in x's type.
 
 Tensors on the CPU go to the plain PyTorch version (`ref.py`), run in
-fp32 on the padded inputs. Tensors on a card go to the CUDA kernel
-(`csrc/ssd_scan.cu`), which reads x, B and C through their strides (the
-model hands it slices of its conv output, uncopied) and takes the ragged
-last chunk as that padding without making it. It never falls back from
-one to the other, and any other device raises.
-`ssd_scan.launches` counts kernel launches.
+fp32 on the padded inputs. Tensors on a card go to the CUDA kernels
+(`csrc/ssd_scan.cu`), which read x, B and C through their strides (the
+model hands them slices of its conv output, uncopied) and take the ragged
+last chunk as that padding without making it. bf16 inputs take three
+launches on the tensor cores, Mamba-2's chunk-parallel passes (chunk
+states, state passing, chunk scan; `ref.ssd_scan_passes` is their plain
+form) through an fp32 workspace the op allocates; a one-chunk sequence
+takes the last pass alone. fp32 inputs take one launch of a CUDA-core
+kernel, one CTA per (batch, head). The route follows the dtype alone: it
+never falls back from one to another or to the plain version, and any
+other device raises. `ssd_scan.launches` counts calls of the op that
+launched (one per Mamba2 layer), whatever the number of kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 _KERNEL = "ssd_scan"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_CU_RESULT_BASE = 10000  # csrc/ssd_scan.cu: a failed encode's CUresult
 #: what the kernel takes: head_dim p a multiple of 4 up to MAX_P, state
 #: n a multiple of 8 up to MAX_N, chunks of up to MAX_CHUNK rows
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256
@@ -38,7 +45,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(_KERNEL)
     fn = lib.ssd_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9
         fn.restype = ctypes.c_int
     return lib
 
@@ -116,16 +123,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if y.numel() == 0:
         return y
     A = A.contiguous()
-    vals = (b, s, h, p, B.shape[2], chunk, *x.stride()[:3], *dt.stride(),
+    n = B.shape[2]
+    vals = (b, s, h, p, n, chunk, *x.stride()[:3], *dt.stride(),
             *B.stride()[:2], *C.stride()[:2], *y.stride()[:3])
     dims = (ctypes.c_int64 * len(vals))(*vals)
+    nc1 = -(-s // chunk) - 1
+    ws = (torch.empty(b * nc1 * h * (2 * p * n + 1), dtype=torch.float32,
+                      device=x.device)
+          if x.dtype == torch.bfloat16 and nc1 else None)
     with torch.cuda.device(x.device):
         rc = _library().ssd_scan_fwd(
             _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
             B.data_ptr(), C.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             ctypes.cast(dims, ctypes.c_void_p),
             torch.cuda.current_stream(x.device).cuda_stream)
     ssd_scan.launches += 1
+    if rc >= _CU_RESULT_BASE:
+        raise RuntimeError("ssd_scan: tensor map encoding failed, CUresult "
+                           f"{rc - _CU_RESULT_BASE}")
     if rc != 0:
         raise RuntimeError(f"ssd_scan: launch failed, cudaError {rc}")
     return y

@@ -682,6 +682,59 @@ def test_ssd_kernel_reads_unaligned_rows(cuda, dtype):
                          C.contiguous(), chunk=100), out, rtol=0, atol=0)
 
 
+# bf16 edges of the chunk-parallel route: head counts 3 and 5, one chunk
+# (s = chunk, and s < chunk, which takes a chunk of s), chunk 100 over
+# three and four chunks (the last of 30 rows), and 333 tokens at chunk 256
+# (a padded last chunk of 77 rows)
+SSD_EDGES = [
+    (2, 512, 3, 64, 128, 256, torch.bfloat16),
+    (2, 512, 5, 64, 64, 256, torch.bfloat16),
+    (2, 256, 4, 64, 128, 256, torch.bfloat16),
+    (2, 100, 4, 64, 64, 256, torch.bfloat16),
+    (2, 300, 3, 64, 64, 100, torch.bfloat16),
+    (2, 330, 3, 64, 128, 100, torch.bfloat16),
+    (1, 333, 2, 64, 128, 256, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_EDGES, ids=[str(c) for c in SSD_EDGES])
+def test_ssd_kernel_bf16_edges(cuda, case):
+    x, dt, A, B, C = _ssd_inputs(case, cuda, seed=5)
+    out = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=case[5])
+    torch.testing.assert_close(out.float(),
+                               _ssd_plain(x, dt, A, B, C, case[5]),
+                               **_tol(case[6]))
+
+
+def _row_rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float(((got - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES[-2:], ids=["mamba2", "zamba2"])
+def test_ssd_kernel_prefill_rows_against_fp32(cuda, case):
+    """At the mamba2-370m and zamba2-1.2b prefill shapes each (token,
+    head) row of the bf16 output stays within 1e-2 relative L2 of the
+    plain version run in fp32 (chip_smoke's FP32_ROW_REL_TOL)."""
+    x, dt, A, B, C = _ssd_inputs(case, cuda, seed=6)
+    out = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=case[5])
+    assert _row_rel_l2(out, _ssd_plain(x, dt, A, B, C, case[5])) < 1e-2
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_is_deterministic(cuda):
+    """Fixed orders of summation and no atomics: two runs, same bits."""
+    case = SSD_CASES[-2]
+    x, dt, A, B, C = _ssd_inputs(case, cuda, seed=7)
+    first = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=case[5])
+    torch.testing.assert_close(ssd_ops.ssd_scan(x, dt, A, B, C,
+                                                chunk=case[5]),
+                               first, rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 def test_ssd_kernel_rejects_bad_inputs(cuda):
     x, dt, A, B, C = _ssd_inputs((1, 32, 2, 8, 16, 8, torch.float32), cuda)

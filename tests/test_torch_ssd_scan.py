@@ -3,7 +3,9 @@ reference's Pallas `ssd_scan` in interpret mode and its oracle
 `ssd_scan_ref`, on the same numpy-seeded inputs, with the reference
 kernel tests' tolerances (`test_kernels._tol`: 5e-4 for f32, 2e-2 for
 bf16), plus chunk invariance, chunks that are not powers of two, and the
-op's refusals.
+op's refusals. The three chunk-parallel passes that the kernel's bf16
+route runs (`ref.ssd_scan_passes`) are held against the same, and their
+bf16 roundings against fp32.
 """
 
 import numpy as np
@@ -17,7 +19,8 @@ from repro.kernels.ssd_scan.ops import ssd_scan as rssd_scan  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as rssd_ref  # noqa: E402
 
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_scan_passes, ssd_scan_ref)
 
 SSD_CASES = [
     # (b, s, h, p, n, chunk, dtype) -- test_kernels.SSD_CASES
@@ -165,3 +168,48 @@ def test_op_refuses_bad_inputs():
         ops.ssd_scan(x, dt, A, B, C, chunk=0)
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.ssd_scan(*(t.to("meta") for t in (x, dt, A, B, C)))
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=[str(c) for c in SSD_CASES])
+def test_passes_compose_to_the_scan(case):
+    """Chunk states, state passing and chunk scan, composed in fp32 on
+    the op's padded inputs, against `ssd_scan_ref` and the reference's
+    interpret-mode Pallas kernel (5e-4)."""
+    b, s, h, p, n, chunk, dtype = case
+    (jx, jdt, jA, jB, jC), t = _both(_inputs(b, s, h, p, n, seed=7), dtype)
+    x, dt, A, B, C = (a.float() for a in t)
+    q = ops.chunk_for(s, chunk)
+    pad = (-s) % q
+    padded = [torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+              for a in (x, dt, B, C)]
+    got = ssd_scan_passes(padded[0], padded[1], A, padded[2], padded[3],
+                          chunk=q)[:, :s]
+    want = ssd_scan_ref(padded[0], padded[1], A, padded[2], padded[3],
+                        chunk=q)[:, :s]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=5e-4,
+                               atol=5e-4)
+    kern = rssd_scan(*(a.astype(jnp.float32) for a in (jx, jdt, jA, jB, jC)),
+                     chunk=chunk, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _f32(kern), rtol=5e-4,
+                               atol=5e-4)
+
+
+@pytest.mark.parametrize("n", [128, 64], ids=["mamba2-n128", "zamba2-n64"])
+def test_bf16_route_rounding_within_row_limit(n):
+    """The bf16 route's roundings, emulated: on bf16 inputs at a reduced
+    mamba2-like shape (b 1, s 1024, h 4, p 64, chunk 256), every formed
+    operand as the kernel's bf16 hi + lo pair, products in fp32, the
+    output cast to bf16. Each (token, head) row stays within 1e-2
+    relative L2 of the fp32 scan, the limit the kernel is held to on the
+    card (chip_smoke's FP32_ROW_REL_TOL), and each element within the
+    reference tests' bf16 tolerance (2e-2 + 2e-2 |y|), which one rounding
+    of each operand misses where a row's terms cancel."""
+    x, dt, A, B, C = (torch.from_numpy(a) for a in
+                      _inputs(1, 1024, 4, 64, n, seed=8))
+    x, B, C = (t.to(torch.bfloat16).float() for t in (x, B, C))
+    want = ssd_scan_ref(x, dt, A, B, C, chunk=256)
+    got = ssd_scan_passes(x, dt, A, B, C, chunk=256,
+                          operands=torch.bfloat16).to(torch.bfloat16).float()
+    row = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(row.max()) < 1e-2, float(row.max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **_tol("bfloat16"))
