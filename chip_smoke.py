@@ -10,17 +10,22 @@ Phases, each printing one JSON line:
    process per source, all at once;
 3. edge_aggregate: the kernel against its plain PyTorch version on the
    card, at the main path's shape (N=11 silos, 2E=22 directed edges of
-   the gaia multigraph, T=1,280,478 FEMNIST CNN parameters) and on an
-   odd-width case with an isolated destination; the two must agree bit
-   for bit. Times the kernel, the plain version and one library call
-   (`torch.addmm` over the dense coefficient matrix, a yardstick the
-   port never calls) beside the least time the card could take;
+   the gaia multigraph, T=1,280,478 FEMNIST CNN parameters), on an
+   odd-width case with an isolated destination, and at the slice's
+   other shapes (EA_SHAPES: the Sent140 LSTM's T=5,070,882 and the
+   iNaturalist ResNet's T=11,685,170 over the multigraph, the ResNet on
+   MATCHA's complete base graph, 2E=110, and on the star, hub in-degree
+   10); the two must agree bit for bit. Times the kernel, the plain
+   version and one library call (`torch.addmm` over the dense
+   coefficient matrix, a yardstick the port never calls) beside the
+   least time the card could take, at every shape;
 4. run_fl: the main path, `repro_torch.fl.run_fl` for FEMNIST on gaia
    over the multigraph, two cycles (30 rounds) at full width on the
    card. Launch counts are zeroed just before and read just after; the
    kernel must have run once per round and the losses must be finite.
    A second run aggregating with the plain version must give the same
-   losses bit for bit (deterministic algorithms are on for both runs);
+   losses bit for bit (deterministic algorithms are on for both runs;
+   warnings of ops without a deterministic implementation are printed);
 5. cycle: one steady-state cycle (15 rounds) timed per aggregator, in
    turns, and a profile of where its device time goes: kernel time by
    name, and the device's idle share against the unprofiled cycle time;
@@ -111,12 +116,25 @@ Phases, each printing one JSON line:
    `gossip_dense` with the ring's Metropolis matrix, within one bf16 ulp
    of sum_j |A_ij w_j|; isolated reads only the stale buffers), then
    RING_ROUNDS timed rounds per state (ms per round, bytes per round,
-   the kernel's share, peak memory) and a profile of an overlay round.
+   the kernel's share, peak memory) and a profile of an overlay round;
+17. run_fl_models (this phase and the next run last, with the
+   deterministic algorithms on again): the same as 4 for the Sent140 LSTM
+   and the iNaturalist ResNet (gaia, multigraph, batch 32, lr 0.05, 30
+   rounds), then one steady-state cycle of each, timed and profiled as
+   in 5;
+18. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
+   a round, the plain aggregation bit-equal): star, mst, dmbst, ring,
+   matcha and matcha_plus on gaia; the multigraph on geant, exodus and
+   ebone (overlays from the blossom matching); the multigraph with
+   Algorithm 1's multiplicity vector (which must train exactly as the
+   default run) and another; two silos removed, randomly and by
+   inefficiency.
 
 `python3 chip_smoke.py --decode-bench DIR` instead times only the
 decode kernel of the port under DIR/src at the three decode shapes
-(`decode_bench`), and `--ssd-bench DIR` only the SSD scan at the two
-prefill shapes (`ssd_bench`), so that two commits compare in one call.
+(`decode_bench`), `--ssd-bench DIR` only the SSD scan at the two
+prefill shapes (`ssd_bench`), and `--cycle-bench DIR` only the FEMNIST
+cycle (`cycle_bench`), so that two commits compare in one call.
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Any
@@ -229,9 +247,65 @@ def _csr_case(torch, rng, n, t, order, row_ptr, coeffs, diag, dev):
             torch.as_tensor(diag, device=dev))
 
 
+#: The slice's other edge_aggregate shapes on gaia: (workload, topology,
+#: T). The LSTM and the ResNet over the multigraph (2E = 22), the ResNet
+#: on MATCHA's complete base graph (2E = 110, in-degree 10, many
+#: coefficients 0 in a round) and on the star (hub in-degree 10, leaves 1).
+EA_SHAPES = {"lstm_multigraph": ("sentiment140", "multigraph", 5_070_882),
+             "resnet_multigraph": ("inaturalist", "multigraph", 11_685_170),
+             "resnet_matcha": ("inaturalist", "matcha", 11_685_170),
+             "resnet_star": ("inaturalist", "star", 11_685_170)}
+
+
+def _time_edge_aggregate(torch, ctx, args, dst_sorted, iters: int) -> dict:
+    """The kernel on ``args`` against its plain version (bit for bit),
+    timed beside the plain version, `torch.addmm` over the dense
+    coefficient matrix (a yardstick the port never calls) and the bound:
+    every input read once (all 2E buffer rows, zero coefficients
+    included: the kernel's result depends on each) and the output
+    written once, over the card's HBM rate, against its fp32 flops."""
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+    w, buf, coeffs, rp, diag = args
+    n, t = w.shape
+    e2 = buf.shape[0]
+    got = ops.edge_aggregate(*args)
+    want = edge_aggregate_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"edge_aggregate (N={n}, 2E={e2}, T={t}): "
+                             f"kernel and plain version differ, max |diff| "
+                             f"{err}")
+    del got, want
+    cmat = torch.zeros((n, e2), device=w.device)
+    cmat[torch.as_tensor(dst_sorted, device=w.device).long(),
+         torch.arange(e2, device=w.device)] = coeffs
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib_diff = float((torch.addmm(diag[:, None] * w, cmat, buf)
+                      - ops.edge_aggregate(*args)).abs().max())
+    kernel_ms = cuda_ms(torch, lambda: ops.edge_aggregate(*args), iters)
+    plain_ms = cuda_ms(torch, lambda: edge_aggregate_ref(*args),
+                       max(2, iters // 5))
+    library_ms = cuda_ms(
+        torch, lambda: torch.addmm(diag[:, None] * w, cmat, buf), iters)
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    bw, fp32, _ = card_rates(ctx["kind"])
+    nbytes = (e2 + 2 * n) * t * 4 + e2 * 4 + (n + 1) * 4 + n * 4
+    flops = (2 * e2 + 2 * n) * t
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / fp32 * 1e3
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms, library_max_abs_diff=lib_diff,
+                bytes=nbytes, flops=flops,
+                achieved_gb_per_s=nbytes / kernel_ms / 1e6)
+
+
 def phase_edge_aggregate(torch, ctx):
     import numpy as np
-    from repro_torch.core.delay import FEMNIST
+    from repro_torch.core.delay import FEMNIST, WORKLOADS
     from repro_torch.fl.dpasgd import make_round_schedule
     from repro_torch.kernels.gossip_combine import ops
     from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
@@ -239,7 +313,8 @@ def phase_edge_aggregate(torch, ctx):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    plan, _ = make_round_schedule("multigraph", get_network("gaia"), FEMNIST)
+    gaia = get_network("gaia")
+    plan, _ = make_round_schedule("multigraph", gaia, FEMNIST)
     n, t = MAIN_SHAPE["n"], MAIN_SHAPE["t"]
     order, row_ptr = ops.csr_sort(plan.dst, n)
     main = _csr_case(torch, rng, n, t, order, row_ptr,
@@ -253,8 +328,7 @@ def phase_edge_aggregate(torch, ctx):
     no_edges = (odd[0], odd[1][:0], odd[2][:0],
                 torch.zeros(n + 1, dtype=torch.int32, device=dev), odd[4])
     errs = {}
-    for name, args in (("main", main), ("odd_isolated", odd),
-                       ("no_edges", no_edges)):
+    for name, args in (("odd_isolated", odd), ("no_edges", no_edges)):
         got = ops.edge_aggregate(*args)
         want = edge_aggregate_ref(*args)
         torch.cuda.synchronize()
@@ -264,97 +338,94 @@ def phase_edge_aggregate(torch, ctx):
                                  f"version differ, max |diff| {errs[name]}")
     if not torch.equal(ops.edge_aggregate(*odd)[0], odd[4][0] * odd[0][0]):
         raise AssertionError("isolated destination is not diag*w")
+    row = _time_edge_aggregate(torch, ctx, main, plan.dst[order], 50)
+    errs["main"] = row["max_abs_err"]
+    ctx["edge_aggregate"] = {k: row[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    ctx["edge_aggregate"]["max_abs_err"] = max(errs.values())
+    del main, odd, no_edges
 
-    e2 = len(plan.dst)
-    w, buf, coeffs, rp, diag = main
-    cmat = torch.zeros((n, e2), device=dev)
-    cmat[torch.as_tensor(plan.dst[order], device=dev).long(),
-         torch.arange(e2, device=dev)] = coeffs
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    lib_out = torch.addmm(diag[:, None] * w, cmat, buf)
-    kernel_ms = cuda_ms(torch, lambda: ops.edge_aggregate(*main), 50)
-    plain_ms = cuda_ms(torch, lambda: edge_aggregate_ref(*main), 10)
-    library_ms = cuda_ms(
-        torch, lambda: torch.addmm(diag[:, None] * w, cmat, buf), 50)
-    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-
+    # The slice's other shapes, inputs drawn on the card.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shapes = {}
+    for name, (wl, topology, width) in EA_SHAPES.items():
+        p, _ = make_round_schedule(topology, gaia, WORKLOADS[wl],
+                                   rounds=ROUNDS)
+        o, rp = ops.csr_sort(p.dst, n)
+        k = 1 % p.num_rounds_cycle
+        e2 = len(p.dst)
+        args = (torch.randn((n, width), generator=gen, device=dev),
+                torch.randn((e2, width), generator=gen, device=dev),
+                torch.as_tensor(p.coeffs[k][o], device=dev),
+                torch.as_tensor(rp, device=dev),
+                torch.as_tensor(p.diag[k], device=dev))
+        shapes[name] = dict(
+            n=n, e2=e2, t=width, max_in_degree=int(np.diff(rp).max()),
+            nonzero_coeffs=int((p.coeffs[k] != 0).sum()),
+            **_time_edge_aggregate(torch, ctx, args, p.dst[o], 20))
+        del args
+        torch.cuda.empty_cache()
+    ctx["edge_aggregate_shapes"] = shapes
     bw, fp32, rate_key = card_rates(ctx["kind"])
-    nbytes = (e2 + 2 * n) * t * 4 + e2 * 4 + (n + 1) * 4 + n * 4
-    flops = (2 * e2 + 2 * n) * t
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / fp32 * 1e3
-    ctx["edge_aggregate"] = dict(
-        max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=library_ms)
-    emit(phase="edge_aggregate", ok=True, shape=dict(n=n, e2=e2, t=t),
-         max_abs_diff=errs, kernel_ms=kernel_ms, plain_ms=plain_ms,
-         library_ms=library_ms,
-         library_max_abs_diff=float((lib_out - ops.edge_aggregate(*main))
-                                    .abs().max()),
-         bound_ms=max(bytes_ms, ops_ms), bytes=nbytes, flops=flops,
+    emit(phase="edge_aggregate", ok=True,
+         shape=dict(n=n, e2=len(plan.dst), t=t), max_abs_diff=errs,
+         kernel_ms=row["ms"], plain_ms=row["plain_ms"],
+         library_ms=row["library_ms"],
+         library_max_abs_diff=row["library_max_abs_diff"],
+         bound_ms=row["bound_ms"], bytes=row["bytes"], flops=row["flops"],
          rates=dict(card=rate_key, hbm_bytes_per_s=bw, fp32_flop_per_s=fp32),
-         achieved_gb_per_s=nbytes / kernel_ms / 1e6)
+         achieved_gb_per_s=row["achieved_gb_per_s"], shapes=shapes,
+         nvidia_smi=ctx["smi"])
+
+
+def _deterministic(torch) -> None:
+    """Deterministic algorithms for the FL runs, whose kernel and plain
+    aggregation paths must agree bit for bit (warnings name any op that
+    has no deterministic implementation)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
 
 
 def phase_run_fl(torch, ctx):
-    from repro_torch.fl import FLConfig, run_fl, train
-    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.fl import FLConfig
 
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.benchmark = False
-    cfg = FLConfig(dataset="femnist", network="gaia", topology="multigraph",
-                   rounds=ROUNDS, eval_every=15)
-    ops.edge_aggregate.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = run_fl(cfg)                      # the card is the default device
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.edge_aggregate.launches
-    ctx["launches"]["edge_aggregate"] = launches
-    if launches != ROUNDS:
-        raise AssertionError(f"edge_aggregate launched {launches} times in "
-                             f"{ROUNDS} rounds")
-    if not all(math.isfinite(x) for x in res.round_losses):
-        raise AssertionError(f"non-finite losses {res.round_losses}")
-
-    t0 = time.perf_counter()
-    ref = train(cfg, device="cuda", aggregator="reference")
-    torch.cuda.synchronize()
-    wall_ref = time.perf_counter() - t0
-    if ref.round_losses != res.round_losses or ref.eval_accs != res.eval_accs:
-        raise AssertionError("kernel and plain aggregation diverged: "
-                             f"{res.round_losses} vs {ref.round_losses}")
-    emit(phase="run_fl", ok=True, rounds=ROUNDS, launches=launches,
-         wall_s=wall, ms_per_round=wall / ROUNDS * 1e3,
-         wall_s_reference_aggregator=wall_ref,
-         mean_cycle_ms=res.mean_cycle_ms, total_time_s=res.total_time_s,
-         round_losses=res.round_losses, eval_rounds=res.eval_rounds,
-         eval_accs=res.eval_accs, reference_aggregator_equal=True)
+    _deterministic(torch)
+    r = _run_twice(torch, FLConfig(dataset="femnist", network="gaia",
+                                   topology="multigraph", rounds=ROUNDS,
+                                   eval_every=15))
+    ctx["launches"]["edge_aggregate"] = r["launches"]
+    emit(phase="run_fl", ok=True, reference_aggregator_equal=True, **r)
 
 
-def phase_cycle(torch, ctx):
-    """Steady-state cycle time per aggregator, and a device-time profile
-    of one cycle (sums by kernel name)."""
+def _cycle_timing(torch, dataset: str, aggregators) -> dict:
+    """One steady-state multigraph cycle of ``dataset``'s model on gaia
+    at batch 32 and `run_fl`'s precision (`pin_fp32`: no TF32 in cuDNN
+    or cuBLAS), timed per aggregator in the given turns, and a profile
+    of where its device time goes: kernel time by name, and the device's
+    idle share against the unprofiled cycle time. A profile that sees no
+    device time fails the caller's phase."""
     import numpy as np
-    from repro_torch.core.delay import FEMNIST
+    from repro_torch.core.delay import WORKLOADS
     from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.device import pin_fp32
     from repro_torch.fl import flat as flatmod, runtime as flrt
     from repro_torch.fl.dpasgd import make_round_schedule
-    from repro_torch.models.small import FEMNIST_CNN
+    from repro_torch.fl.trainer import _DATASET_MODEL, _DATASET_WL
+    from repro_torch.models.small import SMALL_MODELS
     from repro_torch.networks.registry import get_network
     from repro_torch.optim import flat_sgd
 
     dev = torch.device("cuda")
+    pin_fp32(dev)
     net = get_network("gaia")
     n = net.num_silos
-    plan, _ = make_round_schedule("multigraph", net, FEMNIST)
-    params = FEMNIST_CNN.init(torch.Generator().manual_seed(0))
+    spec = SMALL_MODELS[_DATASET_MODEL[dataset]]
+    plan, _ = make_round_schedule("multigraph", net,
+                                  WORKLOADS[_DATASET_WL[dataset]])
+    params = spec.init(torch.Generator().manual_seed(0))
     rt = flrt.make_flat_runtime(plan, params, n)
     opt = flat_sgd(0.05)
-    data = make_federated_dataset("femnist", n, samples_per_silo=128)
+    data = make_federated_dataset(dataset, n, samples_per_silo=128)
     rng = np.random.default_rng(1)
     r = rt.num_rounds_cycle
     per = [[data.sample_batch(s, 32, rng) for s in range(n)]
@@ -368,44 +439,170 @@ def phase_cycle(torch, ctx):
               for k in ("strong", "coeffs", "diag")]
     w0 = flatmod.ravel(rt.spec, params).to(dev)
     times = {}
-    for agg in ("kernel", "reference", "kernel", "reference"):
-        cycle = flrt.make_cycle_fn(rt, loss_fn=FEMNIST_CNN.loss, opt=opt,
+    for agg in aggregators:
+        cycle = flrt.make_cycle_fn(rt, loss_fn=spec.loss, opt=opt,
                                    aggregator=agg)
         state = flrt.init_flat_state(w0, opt, rt)
         times.setdefault(agg, []).append(cuda_ms(
             torch, lambda: cycle(state, batches, *plan_t), 5, warmup=1))
-    cycle = flrt.make_cycle_fn(rt, loss_fn=FEMNIST_CNN.loss, opt=opt)
+    cycle = flrt.make_cycle_fn(rt, loss_fn=spec.loss, opt=opt)
     state = flrt.init_flat_state(w0, opt, rt)
     cycle(state, batches, *plan_t)
     torch.cuda.synchronize()
-    profile = None
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as tprofile
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            cycle(state, batches, *plan_t)
-            torch.cuda.synchronize()
-        # kernels only: op-level rows repeat their kernels' device time
-        rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                       for ev in prof.key_averages()
-                       if ev.device_type == DeviceType.CUDA
-                       and ev.self_device_time_total > 0), reverse=True)
-        busy_ms = sum(x[0] for x in rows) / 1e3
-        cycle_ms = min(times["kernel"])
-        profile = dict(
-            device_busy_ms=busy_ms, kernel_launches=sum(x[2] for x in rows),
-            edge_aggregate_ms=sum(us for us, k, _ in rows
-                                  if "edge_aggregate" in k) / 1e3,
-            idle_share=max(0.0, 1 - busy_ms / cycle_ms),
-            top=[dict(kernel=k[:100], device_ms=us / 1e3, calls=c)
-                 for us, k, c in rows[:12]])
-    except Exception as exc:  # the profiler is untried on this machine
-        profile = dict(error=f"{type(exc).__name__}: {exc}")
-    emit(phase="cycle", ok=True, rounds=r, batch_size=32,
-         cycle_ms=times, round_ms={k: [x / r for x in v]
-                                   for k, v in times.items()},
-         profile=profile)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        cycle(state, batches, *plan_t)
+        torch.cuda.synchronize()
+    # kernels only: op-level rows repeat their kernels' device time
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(x[0] for x in rows) / 1e3
+    if busy_ms == 0:
+        raise RuntimeError(f"{dataset}: the profiler saw no device time")
+    cycle_ms = min(times["kernel"])
+    profile = dict(
+        device_busy_ms=busy_ms, kernel_launches=sum(x[2] for x in rows),
+        edge_aggregate_ms=sum(us for us, k, _ in rows
+                              if "edge_aggregate" in k) / 1e3,
+        idle_share=max(0.0, 1 - busy_ms / cycle_ms),
+        top=[dict(kernel=k[:100], device_ms=us / 1e3, calls=c)
+             for us, k, c in rows[:12]])
+    return dict(rounds=r, batch_size=32, t=rt.spec.size, cycle_ms=times,
+                round_ms={k: [x / r for x in v] for k, v in times.items()},
+                profile=profile)
+
+
+def phase_cycle(torch, ctx):
+    """Steady-state FEMNIST cycle time per aggregator, and a device-time
+    profile of one cycle (sums by kernel name)."""
+    emit(phase="cycle", ok=True, **_cycle_timing(
+        torch, "femnist", ("kernel", "reference", "kernel", "reference")))
+
+
+def _run_twice(torch, cfg) -> dict:
+    """`run_fl(cfg)` on the card with the launch count zeroed just before
+    and read just after, then `train(cfg, aggregator="reference")`; the
+    kernel must launch once per round, the losses must be finite and the
+    two runs equal bit for bit. Warnings that PyTorch raises for an op
+    without a deterministic implementation are returned, not hidden."""
+    import warnings
+    from repro_torch.fl import run_fl, train
+    from repro_torch.kernels.gossip_combine import ops
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ops.edge_aggregate.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_fl(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.edge_aggregate.launches
+        t0 = time.perf_counter()
+        ref = train(cfg, device="cuda", aggregator="reference")
+        torch.cuda.synchronize()
+        wall_ref = time.perf_counter() - t0
+    nondet = sorted({str(w.message)[:160] for w in caught
+                     if "deterministic" in str(w.message)})
+    what = f"{cfg.dataset}/{cfg.network}/{cfg.topology}"
+    if launches != cfg.rounds:
+        raise AssertionError(f"{what}: edge_aggregate launched {launches} "
+                             f"times in {cfg.rounds} rounds")
+    if not all(math.isfinite(x) for x in res.round_losses):
+        raise AssertionError(f"{what}: non-finite losses {res.round_losses}")
+    if ref.round_losses != res.round_losses or ref.eval_accs != res.eval_accs:
+        raise AssertionError(
+            f"{what}: kernel and plain aggregation diverged: "
+            f"{res.round_losses} vs {ref.round_losses}; ops without a "
+            f"deterministic implementation: {nondet}")
+    return dict(rounds=cfg.rounds, launches=launches, wall_s=wall,
+                ms_per_round=wall / cfg.rounds * 1e3,
+                wall_s_reference_aggregator=wall_ref,
+                mean_cycle_ms=res.mean_cycle_ms,
+                total_time_s=res.total_time_s, round_losses=res.round_losses,
+                eval_rounds=res.eval_rounds, eval_accs=res.eval_accs,
+                nondeterministic_warnings=nondet)
+
+
+def phase_run_fl_models(torch, ctx):
+    """`run_fl` for the Sent140 LSTM and the iNaturalist ResNet on gaia
+    over the multigraph, at full width with the paper's defaults (batch
+    32, lr 0.05), ROUNDS rounds, each run twice (`_run_twice`); then one
+    steady-state cycle of each, timed and profiled (`_cycle_timing`).
+    Runs after every other phase: its profile of a Sent140 cycle (74,000
+    kernels) left the profiler blind to the decode kernel's later ones."""
+    from repro_torch.fl import FLConfig
+
+    _deterministic(torch)
+    torch.cuda.empty_cache()
+    out = {}
+    for dataset in ("sent140", "inat"):
+        cfg = FLConfig(dataset=dataset, network="gaia",
+                       topology="multigraph", rounds=ROUNDS, eval_every=15)
+        out[dataset] = _run_twice(torch, cfg)
+        out[dataset]["cycle"] = _cycle_timing(torch, dataset, ("kernel",))
+        torch.cuda.empty_cache()
+    emit(phase="run_fl_models", ok=True, nvidia_smi=ctx["smi"], **out)
+
+
+#: The topologies phase: FEMNIST, TOPO_ROUNDS rounds, one run_fl per case.
+TOPO_ROUNDS = 6
+
+
+def _topology_cases():
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.core.multigraph import build_multigraph
+    from repro_torch.design.catalog import ring_topology
+    from repro_torch.networks.registry import get_network
+
+    gaia = get_network("gaia")
+    overlay = ring_topology(gaia, FEMNIST).graph
+    mg = build_multigraph(gaia, FEMNIST, overlay)
+    alg1 = tuple(mg.multiplicity[p] for p in overlay.pairs)
+    cases = {t: dict(topology=t) for t in
+             ("star", "mst", "dmbst", "ring", "matcha", "matcha_plus")}
+    for net in ("geant", "exodus", "ebone"):
+        cases[f"multigraph/{net}"] = dict(network=net)
+    cases["multiplicity/algorithm1"] = dict(multiplicity=alg1)
+    cases["multiplicity/other"] = dict(
+        multiplicity=tuple(1 + i % 3 for i in range(len(alg1))))
+    for strategy in ("random", "inefficient"):
+        cases[f"remove_silos/{strategy}"] = dict(remove_silos=2,
+                                                 remove_strategy=strategy)
+    return cases
+
+
+def phase_topologies(torch, ctx):
+    """FEMNIST under every other Table-1 topology on gaia, the multigraph
+    on geant, exodus and ebone (blossom overlays), explicit
+    multiplicities (Algorithm 1's vector, which must train as the
+    default run, and another) and two silos removed under both
+    strategies: each case through `_run_twice`."""
+    from repro_torch.fl import FLConfig
+
+    _deterministic(torch)
+    out = {}
+    t0 = time.perf_counter()
+    for name, change in _topology_cases().items():
+        cfg = FLConfig(dataset="femnist", rounds=TOPO_ROUNDS,
+                       eval_every=TOPO_ROUNDS, **change)
+        r = _run_twice(torch, cfg)
+        out[name] = {k: r[k] for k in (
+            "launches", "wall_s", "ms_per_round", "mean_cycle_ms",
+            "total_time_s", "nondeterministic_warnings")}
+        out[name]["losses"] = r["round_losses"]
+    default = _run_twice(torch, FLConfig(dataset="femnist",
+                                         rounds=TOPO_ROUNDS,
+                                         eval_every=TOPO_ROUNDS))
+    if out["multiplicity/algorithm1"]["losses"] != default["round_losses"]:
+        raise AssertionError("Algorithm 1's multiplicity vector does not "
+                             "train as the default run")
+    emit(phase="topologies", ok=True, rounds=TOPO_ROUNDS,
+         seconds=time.perf_counter() - t0, nvidia_smi=ctx["smi"], cases=out)
 
 
 # flash_attention cases of the reference's kernel tests: (b, hq, hkv, s,
@@ -2012,7 +2209,28 @@ def ssd_bench(torch, src: Path) -> int:
     return 0
 
 
-BENCHES = {"--decode-bench": decode_bench, "--ssd-bench": ssd_bench}
+#: Timed FEMNIST cycles per `--cycle-bench` process.
+CYCLE_BENCH_TURNS = 6
+
+
+def cycle_bench(torch, src: Path) -> int:
+    """``python3 chip_smoke.py --cycle-bench DIR`` times the FEMNIST
+    multigraph cycle (gaia, batch 32) of the port under DIR/src (this
+    checkout, or another commit unpacked into a directory that .gitignore
+    lists, so that two commits compare in one call) by `_cycle_timing`,
+    CYCLE_BENCH_TURNS times, with the deterministic settings of the
+    `run_fl` phases. Prints one JSON line."""
+    sys.path.insert(0, str(src / "src"))
+    from repro_torch.fl import runtime
+    _deterministic(torch)
+    out = _cycle_timing(torch, "femnist", ("kernel",) * CYCLE_BENCH_TURNS)
+    print(json.dumps({"cycle_bench": str(src), "runtime": runtime.__file__,
+                      "nvidia_smi": nvidia_smi_line(), **out}), flush=True)
+    return 0
+
+
+BENCHES = {"--decode-bench": decode_bench, "--ssd-bench": ssd_bench,
+           "--cycle-bench": cycle_bench}
 
 
 def main() -> int:
@@ -2036,7 +2254,8 @@ def main() -> int:
               phase_cycle, phase_flash_attention, phase_decode_attention,
               phase_llm_prefill, phase_llm_decode, phase_ssd_scan,
               phase_ssm_prefill, phase_ssm_decode, phase_hybrid_prefill,
-              phase_hybrid_decode, phase_gossip_combine, phase_ring_gossip]
+              phase_hybrid_decode, phase_gossip_combine, phase_ring_gossip,
+              phase_run_fl_models, phase_topologies]
     for phase in phases:
         try:
             phase(torch, ctx)

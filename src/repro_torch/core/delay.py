@@ -14,6 +14,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.graph import Pair, SimpleGraph
 from repro_torch.networks.zoo import NetworkSpec
 
 
@@ -60,3 +61,11 @@ def pair_delay_ms(net: NetworkSpec, wl: Workload, i: int, j: int,
         directed_delay_ms(net, wl, i, j, int(deg[i]), int(deg[j])),
         directed_delay_ms(net, wl, j, i, int(deg[j]), int(deg[i])),
     )
+
+
+def graph_pair_delays(net: NetworkSpec, wl: Workload,
+                      graph: SimpleGraph) -> dict[Pair, float]:
+    """Eq. 3 over all pairs of a static topology (degrees = graph degrees)."""
+    deg = graph.degrees()
+    return {p: pair_delay_ms(net, wl, p[0], p[1], deg) for p in graph.pairs}
+

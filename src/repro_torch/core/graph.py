@@ -47,12 +47,26 @@ class SimpleGraph:
                 raise ValueError(f"pair {p} out of range")
             seen.add(c)
 
+    @property
+    def num_pairs(self) -> int:
+        return len(self.pairs)
+
     def degrees(self) -> np.ndarray:
         deg = np.zeros(self.num_nodes, dtype=np.int64)
         for i, j in self.pairs:
             deg[i] += 1
             deg[j] += 1
         return deg
+
+    def neighbors(self, node: int) -> list[int]:
+        """Neighbours of ``node`` in pair order."""
+        out = []
+        for i, j in self.pairs:
+            if i == node:
+                out.append(j)
+            elif j == node:
+                out.append(i)
+        return out
 
 
 def make_graph(num_nodes: int, pairs: Iterable[Pair]) -> SimpleGraph:

@@ -1,1 +1,2 @@
-"""Topology designs: the ring overlay the multigraph is built on."""
+"""Topology designs: the Table-1 catalog and the blossom matching its
+Christofides overlay needs."""

@@ -6,7 +6,9 @@ local SGD, a refresh of the edge buffers on the round's STRONG pairs,
 and the Eq. 6 aggregation w_i <- A[i,i] w_i + sum_j A[i,j] buf[j->i],
 where A is the Metropolis-Hastings matrix of the OVERLAY and buf[j->i]
 holds w_j fresh if the edge was strong this round and stale otherwise.
-A `RoundPlan` is that schedule as host-side arrays.
+A `RoundPlan` is that schedule as host-side arrays. The static designs
+(star, MST, dMBST, ring) and MATCHA's sampled matchings train through
+the same round with their own per-round strong masks and coefficients.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.core import timing
 from repro_torch.core.consensus import metropolis_weights
 from repro_torch.core.delay import Workload
 from repro_torch.core.graph import MultigraphState, SimpleGraph
+from repro_torch.design.catalog import build_topology, ring_topology
 from repro_torch.networks.zoo import NetworkSpec
 
 
@@ -74,13 +77,88 @@ def multigraph_plan(net: NetworkSpec, tplan: timing.TimingPlan
     return plan, states, overlay
 
 
+def static_plan(graph: SimpleGraph) -> RoundPlan:
+    """Every round: all edges strong, MH coefficients of the graph."""
+    src, dst = _directed_edges(graph)
+    a = metropolis_weights(graph)
+    coeffs = np.asarray([a[int(d), int(s)] for s, d in zip(src, dst)],
+                        np.float32)
+    return RoundPlan(
+        src=src, dst=dst,
+        strong=np.ones((1, len(src)), bool),
+        coeffs=coeffs[None],
+        diag=np.diag(a)[None].astype(np.float32),
+        aggregate=np.ones((1,), bool))
+
+
+def matcha_plan(design, num_nodes: int, rounds: int) -> RoundPlan:
+    """Per-round sampled matchings over the union of the matchings:
+    coefficients are MH of the round's active graph, inactive edges get
+    coefficient 0, and a round with no active pair keeps diag 1."""
+    base_pairs = sorted({p for m in design.matchings for p in m})
+    base = SimpleGraph(num_nodes=num_nodes, pairs=tuple(base_pairs))
+    src, dst = _directed_edges(base)
+    e2 = len(src)
+    strong = np.zeros((rounds, e2), bool)
+    coeffs = np.zeros((rounds, e2), np.float32)
+    diag = np.ones((rounds, num_nodes), np.float32)
+    pair_index = {p: ei for ei, p in enumerate(base.pairs)}
+    for k in range(rounds):
+        g = design.round_graph(k)
+        if not g.pairs:
+            continue
+        a = metropolis_weights(g)
+        for p in g.pairs:
+            ei = pair_index[p]
+            i, j = p
+            strong[k, 2 * ei] = strong[k, 2 * ei + 1] = True
+            coeffs[k, 2 * ei] = a[j, i]
+            coeffs[k, 2 * ei + 1] = a[i, j]
+        diag[k] = np.diag(a)
+    return RoundPlan(src=src, dst=dst, strong=strong, coeffs=coeffs,
+                     diag=diag, aggregate=np.ones((rounds,), bool))
+
+
 def make_round_schedule(topology: str, net: NetworkSpec, wl: Workload, *,
-                        t: int = 5) -> tuple[RoundPlan, timing.TimingPlan]:
-    """(RoundPlan, TimingPlan) built from one schedule. Only the
-    multigraph with Algorithm 1's multiplicities is ported so far."""
-    if topology != "multigraph":
-        raise NotImplementedError(
-            f"topology {topology!r}: only 'multigraph' is ported")
-    tplan = timing.multigraph_timing_plan(net, wl, t=t)
-    plan, _, _ = multigraph_plan(net, tplan)
-    return plan, tplan
+                        t: int = 5, rounds: int = 1, seed: int = 0,
+                        multiplicity=None,
+                        ) -> tuple[RoundPlan, timing.TimingPlan]:
+    """(RoundPlan, TimingPlan) for any topology of the paper's Table 1,
+    built from one schedule.
+
+    ``multiplicity`` (multigraph only) trains an explicit multiplicity
+    vector aligned with the overlay's pairs in place of Algorithm 1's;
+    Algorithm 1's own vector gives the default plan bit for bit.
+    MATCHA's plan has ``rounds`` rows, one per round of the run; star,
+    MST, dMBST and ring have one row, repeated every round.
+    """
+    if topology == "multigraph":
+        if multiplicity is not None:
+            tplan = timing.multiplicity_vector_plan(
+                net, wl, ring_topology(net, wl).graph, multiplicity,
+                name="multigraph(searched)")
+        else:
+            tplan = timing.multigraph_timing_plan(net, wl, t=t)
+        plan, _, _ = multigraph_plan(net, tplan)
+        return plan, tplan
+    if multiplicity is not None:
+        raise ValueError("multiplicity vectors only apply to the "
+                         f"multigraph topology, not {topology!r}")
+    if topology == "star":
+        design = build_topology("star", net, wl)
+        return (static_plan(design.round_graph(0)),
+                timing.star_timing_plan(net, wl))
+    matcha = topology.startswith("matcha")
+    design = build_topology(topology, net, wl,
+                            **({"seed": seed} if matcha else {}))
+    if matcha:
+        # One counter-based activation sequence feeds both plans: the
+        # RoundPlan trains on round_graph(k) and the TimingPlan times
+        # the same rows, every round sampled.
+        tplan = timing.sampled_timing_plan(topology, net, wl, design,
+                                           sample_rounds=max(rounds, 1))
+        return matcha_plan(design, net.num_silos, rounds), tplan
+    g = design.round_graph(0)
+    if topology == "ring":
+        return static_plan(g), timing.ring_timing_plan(net, wl, graph=g)
+    return static_plan(g), timing.static_timing_plan(topology, net, wl, g)

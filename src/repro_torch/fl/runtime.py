@@ -5,8 +5,9 @@ All N silo replicas live in one `(N, T)` fp32 matrix and the 2E
 directed-edge buffers in one `(2E, T)` matrix kept in dst-sorted CSR
 order, so each round is three array steps:
 
-  1. local SGD: per-silo gradients of the flat loss (`torch.func.vmap`
-     over `grad_and_value`), then `opt.update` on the whole matrix;
+  1. local SGD: per-silo gradients (`torch.func.vmap` over
+     `grad_and_value` of the loss of the unpacked leaves, packed back
+     into one (N, T) matrix), then `opt.update` on the whole matrix;
   2. refresh: ``buf = where(strong, w[src], buf)``, fresh weights on the
      round's strong edges and stale ones elsewhere;
   3. aggregation: one `edge_aggregate` over the CSR rows (the CUDA kernel
@@ -107,10 +108,13 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
     spec = rt.spec
     on_device: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def flat_loss(w_row, batch):
-        return loss_fn(flatmod.unravel(spec, w_row), batch)
+    tree_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
 
-    silo_grads = torch.func.vmap(torch.func.grad_and_value(flat_loss))
+    def silo_grads(w, batch):
+        # Differentiate by leaf and pack once: the gradient of a flat row
+        # through `unravel` would add one zero-filled (T,) row per leaf.
+        grads, loss = tree_grads(flatmod.unravel_stacked(spec, w), batch)
+        return flatmod.ravel_stacked(spec, grads), loss
 
     @torch.no_grad()
     def cycle(state: FlatFLState, batches, strong, coeffs, diag):

@@ -1,16 +1,17 @@
 """FL training loop (counterpart of `repro.fl.trainer`, flat runtime).
 
-`run_fl` trains the paper's model on synthetic federated data over the
-multigraph and pairs the learning curve with the simulated wall clock
-of the same `TimingPlan` (paper Fig. 5). The loop advances a whole
-cycle of rounds per call of the cycle function and splits cycles at
-eval boundaries, so evaluation keeps per-round granularity.
+`run_fl` trains one of the paper's models on synthetic federated data
+over any Table-1 topology and pairs the learning curve with the
+simulated wall clock of the same `TimingPlan` (paper Fig. 5). The loop
+advances a whole cycle of rounds per call of the cycle function and
+splits cycles at eval boundaries, so evaluation keeps per-round
+granularity.
 
-Ported so far: FEMNIST on any of the networks whose overlay the port can
-build (gaia, amazon), topology "multigraph", runtime "flat", one device.
-The other datasets and topologies, the legacy runtime, mesh sharding,
-metrics, traces, checkpoints, explicit multiplicities and silo removal
-raise `NotImplementedError`.
+Ported: the three datasets (femnist, sent140, inat), the five networks,
+every topology (star, mst, dmbst, ring, matcha, matcha_plus,
+multigraph), explicit multiplicities and silo removal, on the flat
+runtime and one device. The legacy runtime, mesh sharding, metrics,
+traces and checkpoints raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.delay import WORKLOADS
 from repro_torch.data.synthetic import make_federated_dataset
 from repro_torch.device import pin_fp32, resolve_device
+from repro_torch.faults.degrade import removed_network
 from repro_torch.fl import dpasgd
 from repro_torch.fl import flat as flatmod
 from repro_torch.fl import runtime as flrt
@@ -31,8 +33,10 @@ from repro_torch.models.small import SMALL_MODELS, SmallModelSpec
 from repro_torch.networks.registry import get_network
 from repro_torch.optim import flat_sgd
 
-_DATASET_MODEL = {"femnist": "femnist_cnn"}
-_DATASET_WL = {"femnist": "femnist"}
+_DATASET_MODEL = {"femnist": "femnist_cnn", "sent140": "sent140_lstm",
+                  "inat": "inat_resnet"}
+_DATASET_WL = {"femnist": "femnist", "sent140": "sentiment140",
+               "inat": "inaturalist"}
 
 
 @dataclasses.dataclass
@@ -104,21 +108,13 @@ def _sample_round(data, n: int, cfg: FLConfig, rng) -> tuple[np.ndarray,
 
 
 def _check_ported(cfg: FLConfig) -> None:
-    if cfg.dataset != "femnist":
-        raise NotImplementedError(f"dataset {cfg.dataset!r}: only "
-                                  "'femnist' is ported")
-    if cfg.topology != "multigraph":
-        raise NotImplementedError(f"topology {cfg.topology!r}: only "
-                                  "'multigraph' is ported")
     if cfg.runtime == "legacy":
         raise NotImplementedError("runtime='legacy' is not ported")
     if cfg.runtime != "flat":
         raise ValueError(f"unknown runtime {cfg.runtime!r}")
-    for name in ("mesh", "metrics", "trace", "ckpt_dir", "multiplicity"):
+    for name in ("mesh", "metrics", "trace", "ckpt_dir"):
         if getattr(cfg, name) is not None:
             raise NotImplementedError(f"{name}= is not ported")
-    if cfg.remove_silos:
-        raise NotImplementedError("remove_silos= is not ported")
 
 
 def run_fl(cfg: FLConfig, device=None) -> FLResult:
@@ -136,6 +132,10 @@ def train(cfg: FLConfig, *, device=None,
     pin_fp32(dev)
     wl = WORKLOADS[_DATASET_WL[cfg.dataset]]
     net = get_network(cfg.network)
+    if cfg.remove_strategy != "none" and cfg.remove_silos > 0:
+        # Table 4 ablation: train and time the network without k silos.
+        net, _ = removed_network(net, wl, k=cfg.remove_silos,
+                                 strategy=cfg.remove_strategy, seed=cfg.seed)
     n = net.num_silos
     spec: SmallModelSpec = SMALL_MODELS[_DATASET_MODEL[cfg.dataset]]
     data = make_federated_dataset(cfg.dataset, n,
@@ -144,7 +144,9 @@ def train(cfg: FLConfig, *, device=None,
 
     # One schedule, two views: the RoundPlan drives training, the
     # TimingPlan it was built from drives the wall-clock axis.
-    plan, tplan = dpasgd.make_round_schedule(cfg.topology, net, wl, t=cfg.t)
+    plan, tplan = dpasgd.make_round_schedule(cfg.topology, net, wl, t=cfg.t,
+                                             rounds=cfg.rounds, seed=cfg.seed,
+                                             multiplicity=cfg.multiplicity)
     params0 = spec.init(torch.Generator().manual_seed(cfg.seed))
     rt = flrt.make_flat_runtime(plan, params0, n)
     opt = flat_sgd(cfg.lr, momentum=cfg.momentum)

@@ -1,7 +1,9 @@
-"""The paper's federated models (only the FEMNIST CNN so far)."""
+"""The paper's federated models: the FEMNIST CNN, the Sent140 LSTM and
+the iNaturalist ResNet."""
 
-from repro_torch.models.small import (FEMNIST_CNN, SMALL_MODELS,
-                                      SmallModelSpec, params_from_reference)
+from repro_torch.models.small import (FEMNIST_CNN, INAT_RESNET, SENT140_LSTM,
+                                      SMALL_MODELS, SmallModelSpec,
+                                      param_count, params_from_reference)
 
-__all__ = ["FEMNIST_CNN", "SMALL_MODELS", "SmallModelSpec",
-           "params_from_reference"]
+__all__ = ["FEMNIST_CNN", "INAT_RESNET", "SENT140_LSTM", "SMALL_MODELS",
+           "SmallModelSpec", "param_count", "params_from_reference"]

@@ -184,6 +184,15 @@ class NetworkSpec:
     def compute_scale(self) -> np.ndarray:
         return np.array([s.compute_scale for s in self.silos])
 
+    def subset(self, keep, name: str) -> "NetworkSpec":
+        """The induced sub-network ``name`` on silo indices ``keep`` (in
+        order)."""
+        keep = np.asarray(keep, np.int64)
+        return NetworkSpec(
+            name=name,
+            silos=tuple(self.silos[int(i)] for i in keep),
+            latency_ms=self.latency_ms[np.ix_(keep, keep)])
+
 
 _EARTH_RADIUS_KM = 6371.0
 # Propagation speed in fiber ~ 2/3 c -> 200 km/ms; real WAN paths are not

@@ -1,5 +1,9 @@
 """The port's main path against the reference's: one whole cycle of the
-flat runtime, and `run_fl` end to end (FEMNIST, gaia, multigraph).
+flat runtime, and `run_fl` end to end (FEMNIST over the multigraph, on
+gaia and amazon, at momentum 0.9, with two local updates and at t = 3).
+The other topologies and the ablations are in
+`test_torch_slice_topologies.py`, the other models in
+`test_torch_slice_models.py`.
 
 Both sides start from the reference's initial row, carried across with
 `params_from_reference`, and see the same numpy batches. Tolerances:
@@ -13,8 +17,6 @@ cycle in the reference itself as much as in the port. Accuracies are
 counts over 512 test samples; they may differ by one sample.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -22,9 +24,10 @@ import torch
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
+from _torch_fl_parity import (assert_same_run, reference_init,  # noqa: E402
+                              run_both, start_port_from)
 from repro.core.delay import FEMNIST as RFEMNIST  # noqa: E402
 from repro.data.synthetic import make_federated_dataset  # noqa: E402
-from repro.fl import FLConfig as RConfig, run_fl as rrun_fl  # noqa: E402
 from repro.fl import dpasgd as rdpasgd, flat as rflat  # noqa: E402
 from repro.fl import runtime as rruntime  # noqa: E402
 from repro.models.small import FEMNIST_CNN as RCNN  # noqa: E402
@@ -113,30 +116,26 @@ def test_one_cycle_matches_reference():
     assert stacked["c2"]._base is pstate.w  # views of the (N, T) rows
 
 
-def test_run_fl_matches_reference(monkeypatch):
-    init = psmall.params_from_reference(_reference_init())
-    monkeypatch.setitem(
-        psmall.SMALL_MODELS, "femnist_cnn",
-        dataclasses.replace(psmall.FEMNIST_CNN,
-                            init=lambda gen: {k: v.clone()
-                                              for k, v in init.items()}))
-    kw = dict(rounds=6, eval_every=4, samples_per_silo=16, batch_size=4,
-              lr=LR)
-    ref = rrun_fl(RConfig(**kw))
-    got = prun_fl(PConfig(**kw), device="cpu")
-    assert got.cycle_times_ms == ref.cycle_times_ms
-    assert got.mean_cycle_ms == ref.mean_cycle_ms
-    assert got.total_time_s == ref.total_time_s
-    assert got.eval_rounds == ref.eval_rounds == [4, 6]
-    np.testing.assert_allclose(got.round_losses, ref.round_losses, rtol=1e-5)
-    np.testing.assert_allclose(got.eval_accs, ref.eval_accs, rtol=0,
-                               atol=1 / 512)
+@pytest.mark.parametrize("change", [
+    dict(), dict(network="amazon"), dict(momentum=0.9),
+    dict(local_updates=2), dict(t=3)],
+    ids=["gaia", "amazon", "momentum", "local_updates", "t3"])
+def test_run_fl_matches_reference(monkeypatch, change):
+    """FEMNIST over the multigraph, as is and in the four set-ups of
+    ROADMAP queue 3 (amazon, momentum 0.9, two local updates, t = 3)."""
+    n = pget(change.get("network", "gaia")).num_silos
+    start_port_from(monkeypatch, "femnist_cnn",
+                    reference_init("femnist_cnn", n))
+    ref, got = run_both(rounds=6, eval_every=4, samples_per_silo=16,
+                        batch_size=4, lr=LR, **change)
+    assert got.eval_rounds == [4, 6]
+    assert_same_run(got, ref, rtol=1e-5, acc_atol=1 / 512)
 
 
 @pytest.mark.parametrize("change", [
-    dict(dataset="sent140"), dict(topology="ring"), dict(runtime="legacy"),
-    dict(mesh=2), dict(trace="t.json"), dict(ckpt_dir="ck"),
-    dict(multiplicity=(1,) * 11), dict(remove_silos=2)])
+    dict(runtime="legacy"), dict(mesh=2), dict(trace="t.json"),
+    dict(ckpt_dir="ck"), dict(metrics=object())],
+    ids=["legacy", "mesh", "trace", "ckpt_dir", "metrics"])
 def test_run_fl_rejects_unported(change):
     with pytest.raises(NotImplementedError):
         prun_fl(PConfig(rounds=1, **change), device="cpu")
