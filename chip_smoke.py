@@ -15,8 +15,9 @@ Phases, each printing one JSON line:
    other shapes (EA_SHAPES: the Sent140 LSTM's T=5,070,882 and the
    iNaturalist ResNet's T=11,685,170 over the multigraph, the ResNet on
    MATCHA's complete base graph, 2E=110, and on the star, hub in-degree
-   10); the two must agree bit for bit. Times the kernel, the plain
-   version and one library call (`torch.addmm` over the dense
+   10; FEMNIST's T over the multigraph of the generated 64-silo WAN,
+   N=64, 2E=128); the two must agree bit for bit. Times the kernel, the
+   plain version and one library call (`torch.addmm` over the dense
    coefficient matrix, a yardstick the port never calls) beside the
    least time the card could take, at every shape;
 4. run_fl: the main path, `repro_torch.fl.run_fl` for FEMNIST on gaia
@@ -117,12 +118,30 @@ Phases, each printing one JSON line:
    of sum_j |A_ij w_j|; isolated reads only the stale buffers), then
    RING_ROUNDS timed rounds per state (ms per round, bytes per round,
    the kernel's share, peak memory) and a profile of an overlay round;
-17. run_fl_models (this phase and the next run last, with the
-   deterministic algorithms on again): the same as 4 for the Sent140 LSTM
-   and the iNaturalist ResNet (gaia, multigraph, batch 32, lr 0.05, 30
-   rounds), then one steady-state cycle of each, timed and profiled as
-   in 5;
-18. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
+17. run_fl_surface (this phase and those after it run with the
+   deterministic algorithms on again; it takes no profile): the rest of
+   `run_fl` for FEMNIST on gaia at full width. The 30-round run with
+   `metrics=MetricsSpec()`, `trace=` and `ckpt_dir=` (every 15 rounds,
+   into a temporary directory) beside the same run without them: losses
+   and accuracies bit-equal, one launch a round in each, the metrics
+   (30, 17) and finite with `stale_frac` and `gossip_bytes` exactly what
+   the plan's strong masks give; checkpoint steps 15 and 30, their
+   `sim_time_ms` the running sum of `cycle_times`, step 30's rows
+   averaged and evaluated giving the last accuracy; the trace valid, with
+   compile+dispatch, dispatch, eval and checkpoint host spans and the
+   plan's simulated spans, whose rounds end at the running sum of
+   `cycle_times`. Then `runtime="legacy"` against the flat runtime at
+   momentum 0 and 0.9 (bit-equal), the "dense" aggregator against the
+   kernel on the ring (bit-equal), FEMNIST on wan64 as in 4, and the
+   cycle with metrics against without, in alternating turns; the wall
+   time of a whole run per round (set-up included) for plain, hooked,
+   hooked, plain runs, the hooked run's steady chunk from its trace, the
+   checkpoint's write time and bytes;
+18. run_fl_models (run last with the next phase): the same as 4 for the
+   Sent140 LSTM and the iNaturalist ResNet (gaia, multigraph, batch 32,
+   lr 0.05, 30 rounds), then one steady-state cycle of each, timed and
+   profiled as in 5;
+19. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
    a round, the plain aggregation bit-equal): star, mst, dmbst, ring,
    matcha and matcha_plus on gaia; the multigraph on geant, exodus and
    ebone (overlays from the blossom matching); the multigraph with
@@ -247,14 +266,18 @@ def _csr_case(torch, rng, n, t, order, row_ptr, coeffs, diag, dev):
             torch.as_tensor(diag, device=dev))
 
 
-#: The slice's other edge_aggregate shapes on gaia: (workload, topology,
-#: T). The LSTM and the ResNet over the multigraph (2E = 22), the ResNet
-#: on MATCHA's complete base graph (2E = 110, in-degree 10, many
-#: coefficients 0 in a round) and on the star (hub in-degree 10, leaves 1).
-EA_SHAPES = {"lstm_multigraph": ("sentiment140", "multigraph", 5_070_882),
-             "resnet_multigraph": ("inaturalist", "multigraph", 11_685_170),
-             "resnet_matcha": ("inaturalist", "matcha", 11_685_170),
-             "resnet_star": ("inaturalist", "star", 11_685_170)}
+#: The slice's other edge_aggregate shapes: (network, workload, topology,
+#: T). On gaia, the LSTM and the ResNet over the multigraph (2E = 22), the
+#: ResNet on MATCHA's complete base graph (2E = 110, in-degree 10, many
+#: coefficients 0 in a round) and on the star (hub in-degree 10, leaves
+#: 1); FEMNIST over the multigraph of the generated 64-silo WAN (N = 64,
+#: 2E = 128).
+EA_SHAPES = {
+    "lstm_multigraph": ("gaia", "sentiment140", "multigraph", 5_070_882),
+    "resnet_multigraph": ("gaia", "inaturalist", "multigraph", 11_685_170),
+    "resnet_matcha": ("gaia", "inaturalist", "matcha", 11_685_170),
+    "resnet_star": ("gaia", "inaturalist", "star", 11_685_170),
+    "femnist_wan64": ("wan64", "femnist", "multigraph", 1_280_478)}
 
 
 def _time_edge_aggregate(torch, ctx, args, dst_sorted, iters: int) -> dict:
@@ -348,8 +371,10 @@ def phase_edge_aggregate(torch, ctx):
     # The slice's other shapes, inputs drawn on the card.
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = {}
-    for name, (wl, topology, width) in EA_SHAPES.items():
-        p, _ = make_round_schedule(topology, gaia, WORKLOADS[wl],
+    for name, (network, wl, topology, width) in EA_SHAPES.items():
+        net = get_network(network)
+        n = net.num_silos
+        p, _ = make_round_schedule(topology, net, WORKLOADS[wl],
                                    rounds=ROUNDS)
         o, rp = ops.csr_sort(p.dst, n)
         k = 1 % p.num_rounds_cycle
@@ -360,7 +385,8 @@ def phase_edge_aggregate(torch, ctx):
                 torch.as_tensor(rp, device=dev),
                 torch.as_tensor(p.diag[k], device=dev))
         shapes[name] = dict(
-            n=n, e2=e2, t=width, max_in_degree=int(np.diff(rp).max()),
+            network=network, n=n, e2=e2, t=width,
+            max_in_degree=int(np.diff(rp).max()),
             nonzero_coeffs=int((p.coeffs[k] != 0).sum()),
             **_time_edge_aggregate(torch, ctx, args, p.dst[o], 20))
         del args
@@ -368,7 +394,8 @@ def phase_edge_aggregate(torch, ctx):
     ctx["edge_aggregate_shapes"] = shapes
     bw, fp32, rate_key = card_rates(ctx["kind"])
     emit(phase="edge_aggregate", ok=True,
-         shape=dict(n=n, e2=len(plan.dst), t=t), max_abs_diff=errs,
+         shape=dict(n=MAIN_SHAPE["n"], e2=len(plan.dst), t=t),
+         max_abs_diff=errs,
          kernel_ms=row["ms"], plain_ms=row["plain_ms"],
          library_ms=row["library_ms"],
          library_max_abs_diff=row["library_max_abs_diff"],
@@ -397,13 +424,15 @@ def phase_run_fl(torch, ctx):
     emit(phase="run_fl", ok=True, reference_aggregator_equal=True, **r)
 
 
-def _cycle_timing(torch, dataset: str, aggregators) -> dict:
+def _cycle_timing(torch, dataset: str, aggregators, profile=True) -> dict:
     """One steady-state multigraph cycle of ``dataset``'s model on gaia
     at batch 32 and `run_fl`'s precision (`pin_fp32`: no TF32 in cuDNN
-    or cuBLAS), timed per aggregator in the given turns, and a profile
-    of where its device time goes: kernel time by name, and the device's
-    idle share against the unprofiled cycle time. A profile that sees no
-    device time fails the caller's phase."""
+    or cuBLAS), timed per aggregator in the given turns ("kernel",
+    "reference", or "kernel+metrics": the kernel with `MetricsSpec()`),
+    and, with ``profile``, a profile of where its device time goes:
+    kernel time by name, and the device's idle share against the
+    unprofiled cycle time. A profile that sees no device time fails the
+    caller's phase."""
     import numpy as np
     from repro_torch.core.delay import WORKLOADS
     from repro_torch.data.synthetic import make_federated_dataset
@@ -413,6 +442,7 @@ def _cycle_timing(torch, dataset: str, aggregators) -> dict:
     from repro_torch.fl.trainer import _DATASET_MODEL, _DATASET_WL
     from repro_torch.models.small import SMALL_MODELS
     from repro_torch.networks.registry import get_network
+    from repro_torch.obs import MetricsSpec
     from repro_torch.optim import flat_sgd
 
     dev = torch.device("cuda")
@@ -439,12 +469,18 @@ def _cycle_timing(torch, dataset: str, aggregators) -> dict:
               for k in ("strong", "coeffs", "diag")]
     w0 = flatmod.ravel(rt.spec, params).to(dev)
     times = {}
-    for agg in aggregators:
+    for turn in aggregators:
+        agg, _, metrics = turn.partition("+")
         cycle = flrt.make_cycle_fn(rt, loss_fn=spec.loss, opt=opt,
-                                   aggregator=agg)
+                                   aggregator=agg,
+                                   metrics=MetricsSpec() if metrics else None)
         state = flrt.init_flat_state(w0, opt, rt)
-        times.setdefault(agg, []).append(cuda_ms(
+        times.setdefault(turn, []).append(cuda_ms(
             torch, lambda: cycle(state, batches, *plan_t), 5, warmup=1))
+    if not profile:
+        return dict(rounds=r, batch_size=32, t=rt.spec.size, cycle_ms=times,
+                    round_ms={k: [x / r for x in v]
+                              for k, v in times.items()})
     cycle = flrt.make_cycle_fn(rt, loss_fn=spec.loss, opt=opt)
     state = flrt.init_flat_state(w0, opt, rt)
     cycle(state, batches, *plan_t)
@@ -483,25 +519,33 @@ def phase_cycle(torch, ctx):
         torch, "femnist", ("kernel", "reference", "kernel", "reference")))
 
 
+def _timed_run(torch, cfg, **kw):
+    """`train(cfg, **kw)` on the card with the launch count zeroed just
+    before: (result, wall seconds, edge_aggregate launches)."""
+    from repro_torch.fl import train
+    from repro_torch.kernels.gossip_combine import ops
+
+    ops.edge_aggregate.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train(cfg, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, ops.edge_aggregate.launches
+
+
 def _run_twice(torch, cfg) -> dict:
-    """`run_fl(cfg)` on the card with the launch count zeroed just before
-    and read just after, then `train(cfg, aggregator="reference")`; the
+    """`train(cfg)` on the card with the launch count zeroed just before
+    and read just after (`_timed_run`), then
+    `train(cfg, aggregator="reference")`; the
     kernel must launch once per round, the losses must be finite and the
     two runs equal bit for bit. Warnings that PyTorch raises for an op
     without a deterministic implementation are returned, not hidden."""
     import warnings
-    from repro_torch.fl import run_fl, train
-    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.fl import train
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        ops.edge_aggregate.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run_fl(cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = ops.edge_aggregate.launches
+        res, wall, launches = _timed_run(torch, cfg)
         t0 = time.perf_counter()
         ref = train(cfg, device="cuda", aggregator="reference")
         torch.cuda.synchronize()
@@ -526,6 +570,214 @@ def _run_twice(torch, cfg) -> dict:
                 total_time_s=res.total_time_s, round_losses=res.round_losses,
                 eval_rounds=res.eval_rounds, eval_accs=res.eval_accs,
                 nondeterministic_warnings=nondet)
+
+
+#: run_fl_surface: evals and checkpoints every SURFACE_EVERY rounds of the
+#: ROUNDS-round FEMNIST run; the dense and wan64 cases run TOPO_ROUNDS.
+SURFACE_EVERY = 15
+
+
+def _surface_hooks(torch, tmp: Path) -> dict:
+    """The FEMNIST run with metrics=, trace= and ckpt_dir= beside the same
+    run without them: bit-equal losses and accuracies, one launch a round
+    in each, the metrics' count columns from the plan's strong masks, the
+    checkpoints' rows and meta, the trace's spans against the plan."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager, load_fl_checkpoint
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl import FLConfig, dpasgd, flat as flatmod
+    from repro_torch.models.small import FEMNIST_CNN
+    from repro_torch.networks.registry import get_network
+    from repro_torch.obs import (MetricsSpec, TraceRecorder, to_trace_json,
+                                 validate_trace)
+
+    kw = dict(dataset="femnist", network="gaia", topology="multigraph",
+              rounds=ROUNDS, eval_every=SURFACE_EVERY)
+    # plain, hooked, hooked, plain: each kind runs once first and once
+    # after the other, so the wall times of the two kinds see the same
+    # order effects; the checks read the second hooked run's files
+    runs = {"plain": [], "hooked": []}
+    for i, kind in enumerate(("plain", "hooked", "hooked", "plain")):
+        trace, ckpt_dir = tmp / f"trace{i}.json", tmp / f"ckpt{i}"
+        hooks = {} if kind == "plain" else dict(
+            metrics=MetricsSpec(), trace=str(trace), ckpt_dir=str(ckpt_dir),
+            ckpt_every=SURFACE_EVERY)
+        res, wall, launches = _timed_run(torch, FLConfig(**kw, **hooks))
+        if launches != ROUNDS:
+            raise AssertionError(f"{kind} run {i}: edge_aggregate launched "
+                                 f"{launches} times in {ROUNDS} rounds")
+        runs[kind].append((res, wall, trace, ckpt_dir))
+    plain, hooked = runs["plain"][0][0], runs["hooked"][1][0]
+    trace, ckpt_dir = runs["hooked"][1][2:]
+    for res, *_ in runs["plain"] + runs["hooked"]:
+        if (res.round_losses != plain.round_losses
+                or res.eval_accs != plain.eval_accs):
+            raise AssertionError(
+                f"the hooks changed the run: losses {res.round_losses} vs "
+                f"{plain.round_losses}, accuracies {res.eval_accs} vs "
+                f"{plain.eval_accs}")
+    if not all(math.isfinite(x) for x in plain.round_losses):
+        raise AssertionError(f"non-finite losses {plain.round_losses}")
+
+    # metrics: (ROUNDS, 17), finite; count columns from the strong masks
+    mets, cols = hooked.metrics, hooked.metric_columns
+    if mets.shape != (ROUNDS, 17) or not np.isfinite(mets).all():
+        raise AssertionError(f"metrics {mets.shape}, finite "
+                             f"{np.isfinite(mets).all()}")
+    plan, tplan = dpasgd.make_round_schedule("multigraph",
+                                             get_network("gaia"), FEMNIST,
+                                             rounds=ROUNDS)
+    strong = plan.strong[np.arange(ROUNDS) % plan.num_rounds_cycle]
+    n_strong = strong.sum(axis=1).astype(np.float32)
+    t = MAIN_SHAPE["t"]
+    want = {"stale_frac": np.float32(1) - n_strong
+            / np.float32(strong.shape[1]),
+            "gossip_bytes": n_strong * np.float32(t * 4)}
+    for name, value in want.items():
+        got = mets[:, cols.index(name)]
+        if not np.array_equal(got, value):
+            raise AssertionError(f"{name} {got.tolist()} is not what the "
+                                 f"strong masks give, {value.tolist()}")
+
+    # checkpoints: steps, sim_time_ms, the last rows evaluated
+    cum = np.cumsum(hooked.cycle_times_ms)
+    steps = CheckpointManager(ckpt_dir).steps()
+    if steps != [SURFACE_EVERY, ROUNDS]:
+        raise AssertionError(f"checkpoint steps {steps}")
+    for step in steps:
+        meta = load_fl_checkpoint(ckpt_dir, step).meta
+        if meta["sim_time_ms"] != cum[step - 1] or meta["round"] != step:
+            raise AssertionError(f"step {step}: sim_time_ms "
+                                 f"{meta['sim_time_ms']} vs {cum[step - 1]}")
+    last = load_fl_checkpoint(ckpt_dir, ROUNDS)
+    ckpt_bytes = (ckpt_dir / f"step_{ROUNDS}.msgpack").stat().st_size
+    data = make_federated_dataset("femnist", 11, samples_per_silo=128)
+    test = {"x": torch.as_tensor(data.test_x, device="cuda"),
+            "y": torch.as_tensor(data.test_y, dtype=torch.long,
+                                 device="cuda")}
+    spec = flatmod.make_flat_spec(FEMNIST_CNN.init(torch.Generator()))
+    rows = torch.as_tensor(last.w.copy(), device="cuda")
+    with torch.no_grad():
+        acc = float(FEMNIST_CNN.accuracy(
+            flatmod.unravel(spec, rows.mean(dim=0)), test))
+    if last.w.shape != (11, t) or acc != hooked.eval_accs[-1]:
+        raise AssertionError(f"step {ROUNDS}'s rows {last.w.shape} evaluate "
+                             f"to {acc}, the run to {hooked.eval_accs[-1]}")
+
+    # trace: valid, host spans, sim spans equal to the plan's, which end
+    # each round at the running sum of cycle_times
+    obj = json.loads(trace.read_text())
+    errs = validate_trace(obj)
+    if errs:
+        raise AssertionError(f"invalid trace: {errs[:5]}")
+    host = [e for e in obj["traceEvents"] if e.get("cat") == "host"]
+    names = {e["name"] for e in host}
+    if not {"compile+dispatch", "dispatch", "eval", "checkpoint"} <= names:
+        raise AssertionError(f"host spans {sorted(names)}")
+    rec = TraceRecorder()
+    rec.add_sim_spans(tplan, ROUNDS)
+
+    def sim(o):
+        return [e for e in o["traceEvents"] if e.get("cat") == "sim"]
+
+    if sim(obj) != sim(to_trace_json(rec)):
+        raise AssertionError("the run's simulated spans are not the plan's")
+    ends = [rec.round_end_ms(k) for k in range(ROUNDS)]
+    if ends != cum.tolist():
+        raise AssertionError(f"round ends {ends} vs cumsum(cycle_times) "
+                             f"{cum.tolist()}")
+    counters = {e["name"] for e in obj["traceEvents"] if e["ph"] == "C"}
+    if counters != set(cols):
+        raise AssertionError(f"counters {sorted(counters)}")
+    ckpt_ms = [e["dur"] / 1e3 for e in host if e["name"] == "checkpoint"]
+    # ms a round = a whole train() over ROUNDS, so dataset, sampling,
+    # evals and the first chunk are in it; "dispatch" = the hooked run's
+    # steady chunks alone, from its trace
+    dispatch_ms = [e["dur"] / 1e3 for e in host if e["name"] == "dispatch"]
+    return dict(
+        launches=ROUNDS, run_order=["plain", "hooked", "hooked", "plain"],
+        ms_per_round_with_setup={
+            kind: [wall / ROUNDS * 1e3 for _, wall, *_ in rs]
+            for kind, rs in runs.items()},
+        dispatch_chunk_ms=dispatch_ms,
+        checkpoint_write_ms=ckpt_ms, checkpoint_bytes=ckpt_bytes,
+        row_bytes=11 * t * 4, metric_columns=list(cols),
+        metrics_last_round=mets[-1].tolist(),
+        host_spans={n: len([e for e in host if e["name"] == n])
+                    for n in sorted(names)},
+        round_losses=plain.round_losses, eval_accs=plain.eval_accs)
+
+
+def _legacy_vs_flat(torch) -> dict:
+    """`runtime="legacy"` against the flat runtime on the FEMNIST config,
+    at momentum 0 and 0.9: losses and accuracies bit-equal (the vmapped
+    convolutions copy the flat runtime's weight views into contiguous
+    tensors, so cuDNN sees the legacy runtime's layouts)."""
+    from repro_torch.fl import FLConfig
+
+    out = {}
+    for momentum in (0.0, 0.9):
+        kw = dict(dataset="femnist", network="gaia", topology="multigraph",
+                  rounds=ROUNDS, eval_every=SURFACE_EVERY, momentum=momentum)
+        flat, flat_s, _ = _timed_run(torch, FLConfig(**kw))
+        legacy, legacy_s, launches = _timed_run(
+            torch, FLConfig(runtime="legacy", **kw))
+        a, b = flat.round_losses, legacy.round_losses
+        out[f"momentum_{momentum}"] = dict(
+            max_abs_loss_diff=max(abs(x - y) for x, y in zip(a, b)),
+            legacy_launches=launches, eval_accs=legacy.eval_accs,
+            ms_per_round=[flat_s / ROUNDS * 1e3, legacy_s / ROUNDS * 1e3])
+        if launches != 0:
+            raise AssertionError(f"the legacy runtime launched "
+                                 f"edge_aggregate {launches} times")
+        if a != b or flat.eval_accs != legacy.eval_accs:
+            raise AssertionError(
+                f"legacy vs flat at momentum {momentum}: losses {b} vs {a}, "
+                f"accuracies {legacy.eval_accs} vs {flat.eval_accs}")
+    return out
+
+
+def phase_run_fl_surface(torch, ctx):
+    """The rest of `run_fl` on the card, FEMNIST at full width (batch 32,
+    `pin_fp32`): the hooks (`_surface_hooks`), legacy against flat
+    (`_legacy_vs_flat`), the dense aggregator on the ring, and wan64
+    through `_run_twice`; then the cycle with metrics against without, in
+    alternating turns. No profile; files go to a temporary directory."""
+    import tempfile
+    from repro_torch.fl import FLConfig
+
+    _deterministic(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        hooks = _surface_hooks(torch, Path(tmp))
+    legacy = _legacy_vs_flat(torch)
+    ring = FLConfig(dataset="femnist", network="gaia", topology="ring",
+                    rounds=TOPO_ROUNDS, eval_every=TOPO_ROUNDS)
+    dense, _, _ = _timed_run(torch, ring, aggregator="dense")
+    kernel, _, launches = _timed_run(torch, ring)
+    if (dense.round_losses != kernel.round_losses
+            or dense.eval_accs != kernel.eval_accs or launches != TOPO_ROUNDS):
+        raise AssertionError(f"dense vs kernel on the ring: "
+                             f"{dense.round_losses} vs {kernel.round_losses}, "
+                             f"{launches} launches")
+    torch.cuda.empty_cache()
+    wan64 = _run_twice(torch, FLConfig(dataset="femnist", network="wan64",
+                                       topology="multigraph",
+                                       rounds=TOPO_ROUNDS,
+                                       eval_every=TOPO_ROUNDS))
+    ctx["launches"]["edge_aggregate_wan64"] = wan64["launches"]
+    torch.cuda.empty_cache()
+    cycle = _cycle_timing(torch, "femnist", ("kernel", "kernel+metrics") * 2,
+                          profile=False)
+    emit(phase="run_fl_surface", ok=True, seconds=time.perf_counter() - t0,
+         nvidia_smi=ctx["smi"], hooks=hooks, legacy_vs_flat=legacy,
+         dense_vs_kernel=dict(bit_equal=True, launches=launches,
+                              losses=dense.round_losses),
+         wan64={k: wan64[k] for k in (
+             "launches", "wall_s", "ms_per_round", "mean_cycle_ms",
+             "total_time_s", "round_losses", "nondeterministic_warnings")},
+         cycle_metrics=cycle)
 
 
 def phase_run_fl_models(torch, ctx):
@@ -2255,7 +2507,7 @@ def main() -> int:
               phase_llm_prefill, phase_llm_decode, phase_ssd_scan,
               phase_ssm_prefill, phase_ssm_decode, phase_hybrid_prefill,
               phase_hybrid_decode, phase_gossip_combine, phase_ring_gossip,
-              phase_run_fl_models, phase_topologies]
+              phase_run_fl_surface, phase_run_fl_models, phase_topologies]
     for phase in phases:
         try:
             phase(torch, ctx)
@@ -2264,9 +2516,16 @@ def main() -> int:
                  error=f"{type(exc).__name__}: {exc}")
             traceback.print_exc()
             return 1
+    wan64 = ctx["edge_aggregate_shapes"]["femnist_wan64"]
     print(json.dumps({"kernels": [
         _kernel_row(ctx, "edge_aggregate",
                     "src/repro/kernels/gossip_combine/kernel.py:114"),
+        dict(_kernel_row(ctx, "edge_aggregate",
+                         "src/repro/kernels/gossip_combine/kernel.py:114"),
+             shape="wan64: N=64, 2E=128, T=1,280,478",
+             launches=ctx["launches"]["edge_aggregate_wan64"],
+             **{k: wan64[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}),
         _kernel_row(ctx, "gossip_combine",
                     "src/repro/kernels/gossip_combine/kernel.py:46"),
         _kernel_row(ctx, "flash_attention",

@@ -201,6 +201,56 @@ class TimingPlan:
             return np.zeros(num_rounds, np.int64)
         return _tile_to(self.iso_count, num_rounds)
 
+    def delay_history(self, num_rounds: int) -> tuple[np.ndarray,
+                                                      np.ndarray,
+                                                      np.ndarray]:
+        """Eq. 4 replay keeping the per-pair delay vector every round.
+
+        Returns ``(taus (R,), d (R, E), strong (R, E))``: ``d[k]`` is the
+        round's post-transition pair-delay vector (what a strong pair
+        blocks on) and ``taus`` is bit-identical to
+        `cycle_times(num_rounds)` (the same IEEE ops per branch, without
+        the orbit short-circuit). `obs.trace` turns it into per-silo
+        compute/transfer/wait spans.
+        """
+        if self.kind != "recurrence":
+            raise ValueError("delay_history needs a recurrence-kind plan; "
+                             f"kind={self.kind!r} has no per-pair state")
+        ww_idx, sw_idx, ws_idx, ws_pc, strong_idx = _recurrence_scratch(
+            self.strong, self.trans, self.pair_comp)
+        e = len(self.d0)
+        num_states = len(strong_idx)
+        taus = np.empty(num_rounds, np.float64)
+        d_hist = np.empty((num_rounds, e), np.float64)
+        d_cur = self.d0.copy()
+        d_prev = self.d0.copy()
+        prev_tau = 0.0
+        for k in range(num_rounds):
+            s = k % num_states
+            if k > 0:
+                i = ws_idx[s]
+                ws_val = (np.maximum(ws_pc[s], d_cur[i] - d_prev[i])
+                          if i.size else None)
+                np.copyto(d_prev, d_cur)
+                w = ww_idx[s]
+                if w.size:
+                    d_prev[w] += prev_tau
+                v = sw_idx[s]
+                if v.size:
+                    d_prev[v] = prev_tau
+                if ws_val is not None:
+                    d_prev[i] = ws_val
+                d_prev, d_cur = d_cur, d_prev
+            j = strong_idx[s]
+            tau = float(d_cur[j].max()) if j.size else -np.inf
+            if self.lone_comp[s] > tau:
+                tau = float(self.lone_comp[s])
+            taus[k] = tau
+            d_hist[k] = d_cur
+            prev_tau = tau
+        phases = np.arange(num_rounds) % num_states
+        return taus, d_hist, self.strong[phases]
+
     def report(self, num_rounds: int) -> CycleTimeReport:
         if self.kind == "cyclic":
             period_times = self.period()

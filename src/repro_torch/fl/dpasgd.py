@@ -9,19 +9,29 @@ holds w_j fresh if the edge was strong this round and stale otherwise.
 A `RoundPlan` is that schedule as host-side arrays. The static designs
 (star, MST, dMBST, ring) and MATCHA's sampled matchings train through
 the same round with their own per-round strong masks and coefficients.
+
+`fl_round_step` is the legacy per-round runtime over per-leaf stacked
+trees, the oracle that the flat whole-cycle runtime (`fl/runtime.py`)
+is held against bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core import timing
 from repro_torch.core.consensus import metropolis_weights
 from repro_torch.core.delay import Workload
 from repro_torch.core.graph import MultigraphState, SimpleGraph
 from repro_torch.design.catalog import build_topology, ring_topology
+from repro_torch.fl.flat import Params
+from repro_torch.kernels.gossip_combine.ops import csr_sort
+from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+from repro_torch.launch.mesh import tree_map
 from repro_torch.networks.zoo import NetworkSpec
 
 
@@ -162,3 +172,79 @@ def make_round_schedule(topology: str, net: NetworkSpec, wl: Workload, *,
     if topology == "ring":
         return static_plan(g), timing.ring_timing_plan(net, wl, graph=g)
     return static_plan(g), timing.static_timing_plan(topology, net, wl, g)
+
+
+# ---------------------------------------------------------------------------
+# The legacy per-round runtime over per-leaf stacked trees
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FLSimState:
+    """silo_params: leaves (N, ...); opt_state: the per-leaf optimizer's
+    state; buffers: leaves (2E, ...) in the plan's ORIGINAL edge order
+    (buffers[e] = last weights of src(e) seen by dst(e))."""
+
+    silo_params: Params
+    opt_state: Any
+    buffers: Params
+
+
+def init_fl_state(params0: Params, opt, num_silos: int,
+                  src: np.ndarray) -> FLSimState:
+    """Every silo starts from ``params0`` (the standard FL assumption);
+    buffers start as the sources' leaves. The state lives on
+    ``params0``'s device."""
+    silo_params = tree_map(
+        lambda x: x[None].expand(num_silos, *x.shape).clone(), params0)
+    src = np.asarray(src)
+    return FLSimState(silo_params, opt.init(silo_params), tree_map(
+        lambda w: w[torch.as_tensor(src, dtype=torch.long, device=w.device)],
+        silo_params))
+
+
+def fl_round_step(state: FLSimState, batches, plan_src, plan_dst,
+                  strong, coeffs, diag, *, loss_fn, opt, local_updates: int,
+                  lr_scale: float = 1.0) -> tuple[FLSimState, torch.Tensor]:
+    """One communication round over per-leaf stacked trees.
+
+    batches: ``x`` (u, N, b, ...) and ``y`` (u, N, b), one micro batch
+    per local update per silo; plan_src / plan_dst: the plan's (2E,)
+    host arrays; strong (2E,) bool, coeffs (2E,) and diag (N,): this
+    round's tensors in the plan's original edge order, on the state's
+    device. Each leaf aggregates with `edge_aggregate_ref`'s ordered sum
+    (reshaped to (N, -1), the edges dst-sorted by a stable sort, as the
+    flat runtime orders them), never `index_add_`, whose atomics on
+    CUDA add in a varying order. Returns the state and the round's mean
+    loss (a 0-d tensor).
+    """
+    w, os_ = state.silo_params, state.opt_state
+    tree_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+    losses = []
+    with torch.no_grad():
+        for u in range(local_updates):
+            grads, loss = tree_grads(w, {"x": batches["x"][u],
+                                         "y": batches["y"][u]})
+            w, os_ = opt.update(w, grads, os_, lr_scale)
+            losses.append(loss)
+        dev = strong.device
+        n = diag.shape[0]
+        order, row_ptr = csr_sort(np.asarray(plan_dst), n)
+        order_t = torch.as_tensor(order, dtype=torch.long, device=dev)
+        src_t = torch.as_tensor(np.asarray(plan_src), dtype=torch.long,
+                                device=dev)
+        row_ptr_t = torch.as_tensor(row_ptr)
+        coeffs_sorted = coeffs[order_t]
+
+        def refresh(buf, wall):
+            mask = strong.reshape((-1,) + (1,) * (buf.dim() - 1))
+            return torch.where(mask, wall[src_t], buf)
+
+        def aggregate(wall, buf):
+            out = edge_aggregate_ref(wall.reshape(n, -1),
+                                     buf[order_t].reshape(len(order), -1),
+                                     coeffs_sorted, row_ptr_t, diag)
+            return out.reshape(wall.shape)
+
+        buffers = tree_map(refresh, state.buffers, w)
+        w = tree_map(aggregate, w, buffers)
+    return FLSimState(w, os_, buffers), torch.stack(losses).mean()

@@ -16,8 +16,10 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class RuntimeOptions:
     """mesh (silo-axis sharding), gossip (its cross-shard collective),
-    metrics (in-cycle metrics) and trace (a trace file path). None of
-    them is ported yet; the trainer rejects any but the defaults."""
+    metrics (an `obs.MetricsSpec` of in-cycle metrics) and trace (a trace
+    file path). metrics and trace are ported; mesh and gossip are not
+    (the trainer raises for ``mesh=``, and ``gossip`` is read only by the
+    mesh runtime)."""
 
     mesh: object = None
     gossip: str = "halo"

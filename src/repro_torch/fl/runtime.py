@@ -14,7 +14,9 @@ order, so each round is three array steps:
      on a card, its plain version on the CPU).
 
 `make_cycle_fn` runs the rounds of a cycle in a Python loop and syncs
-with the host only when the caller reads the losses.
+with the host only when the caller reads the losses (and the in-cycle
+metrics, when asked for). The legacy per-leaf runtime
+(`fl/dpasgd.fl_round_step`) computes the same rounds bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ import torch
 from repro_torch.fl import flat as flatmod
 from repro_torch.fl.dpasgd import RoundPlan
 from repro_torch.kernels.gossip_combine import ops as gossip_ops
-from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+from repro_torch.kernels.gossip_combine.ref import (dense_edge_aggregate,
+                                                    edge_aggregate_ref)
+from repro_torch.obs import metrics as obsmet
 
 
 @dataclasses.dataclass
@@ -86,7 +90,8 @@ def init_flat_state(w0: torch.Tensor, opt, rt: FlatRuntime) -> FlatFLState:
 
 
 def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
-                  lr_scale: float = 1.0, aggregator: str = "kernel"):
+                  lr_scale: float = 1.0, aggregator: str = "kernel",
+                  metrics=None):
     """Build the whole-cycle step.
 
     Returns ``cycle(state, batches, strong, coeffs, diag) -> (state,
@@ -97,15 +102,37 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
     slice of the cycle the caller passes.
 
     aggregator: "kernel" (`ops.edge_aggregate`: the CUDA kernel for
-    tensors on a card, the plain version on the CPU) or "reference"
-    (the plain version everywhere).
+    tensors on a card, the plain version on the CPU), "reference" (the
+    plain version everywhere) or "dense" (`dense_edge_aggregate`, for
+    overlays whose every silo has the same in-degree, e.g. any ring).
+
+    metrics: an `obs.MetricsSpec` adds a third output, an (R, K) fp32
+    tensor of per-round scalars on the state's device (column names on
+    the returned function's ``metric_columns``). With ``metrics=None``
+    the Python branches below add no op, so the state is bit for bit
+    that of a run with metrics; the metric taps only read.
     """
-    if aggregator not in ("kernel", "reference"):
-        raise ValueError(f"aggregator must be 'kernel' or 'reference', "
-                         f"got {aggregator!r}")
-    aggregate = (gossip_ops.edge_aggregate if aggregator == "kernel"
-                 else edge_aggregate_ref)
+    if aggregator not in ("kernel", "reference", "dense"):
+        raise ValueError(f"aggregator must be 'kernel', 'reference' or "
+                         f"'dense', got {aggregator!r}")
+    if aggregator == "dense":
+        degrees = np.diff(rt.row_ptr)
+        if degrees.size == 0 or (degrees != degrees[0]).any():
+            raise ValueError("aggregator='dense' needs a uniform in-degree; "
+                             f"got {degrees}")
+        n, deg = rt.num_silos, int(degrees[0])
+
+        def aggregate(w, buf, coeffs_r, row_ptr, diag_r):
+            return dense_edge_aggregate(w, buf, coeffs_r.reshape(n, deg),
+                                        diag_r)
+    else:
+        aggregate = (gossip_ops.edge_aggregate if aggregator == "kernel"
+                     else edge_aggregate_ref)
     spec = rt.spec
+    ms = metrics
+    if ms is not None:
+        e2 = int(rt.dst_sorted.shape[0])
+        row_bytes = float(spec.size * 4)  # fp32 flat rows
     on_device: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
     tree_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
@@ -126,21 +153,66 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
         src, row_ptr = on_device[dev]
         w, os_, buf = state.w, state.opt_state, state.buffers
         losses = []
+        if ms is not None:
+            # buffer age restarts each cycle call: "rounds since refresh,
+            # within this call"
+            age = torch.zeros(e2, dtype=torch.float32, device=dev)
+            rows = []
+            # a divisor on the device: torch turns division by a host
+            # scalar (and `mean`) on CUDA into a multiply by its
+            # reciprocal, and CPU and card would round differently
+            e2_t = torch.full((), float(e2), device=dev)
         for r in range(strong.shape[0]):
+            if ms is not None:
+                w0, gsq = w, []
             round_loss = []
             for u in range(batches["x"].shape[1]):
                 batch = {"x": batches["x"][r, u], "y": batches["y"][r, u]}
                 grads, loss = silo_grads(w, batch)
                 w, os_ = opt.update(w, grads, os_, lr_scale)
                 round_loss.append(loss)
+                if ms is not None and ms.grad_norm:
+                    gsq.append(torch.sum(torch.square(grads)))
             buf = torch.where(strong[r][:, None], w[src], buf)
             w = aggregate(w, buf, coeffs[r], row_ptr, diag[r])
-            losses.append(torch.stack(round_loss).mean())
-        return FlatFLState(w, os_, buf), torch.stack(losses)
+            round_loss = torch.stack(round_loss)
+            losses.append(round_loss.mean())
+            if ms is None:
+                continue
+            vals = {}
+            if ms.grad_norm:
+                vals["gsq"] = torch.stack(gsq).sum()
+            if ms.param_norm:
+                vals["psq"] = torch.sum(torch.square(w))
+            if ms.update_norm:
+                vals["usq"] = torch.sum(torch.square(w - w0))
+            if ms.silo_loss:
+                vals["silo_loss"] = round_loss.mean(dim=0)
+            n_strong = torch.sum(strong[r].to(torch.float32))
+            age = torch.where(strong[r], 0.0, age + 1.0)
+            if ms.staleness:
+                vals["stale_frac"] = 1.0 - n_strong / e2_t
+                vals["buf_age"] = torch.sum(age) / e2_t
+            if ms.traffic:
+                vals["gossip_bytes"] = n_strong * row_bytes
+            rows.append(obsmet.assemble_row(ms, vals))
+        out = (FlatFLState(w, os_, buf), torch.stack(losses))
+        if ms is None:
+            return out
+        return out + (torch.stack(rows),)
 
+    if ms is not None:
+        cycle.metric_columns = ms.columns(rt.num_silos)
     return cycle
 
 
 def unpack_params(rt: FlatRuntime, state: FlatFLState) -> flatmod.Params:
     """(N, T) -> dict of views with a leading silo axis."""
     return flatmod.unravel_stacked(rt.spec, state.w)
+
+
+def unpack_buffers(rt: FlatRuntime, state: FlatFLState) -> flatmod.Params:
+    """Sorted (2E, T) -> dict of (2E, ...) leaves in ORIGINAL edge order
+    (the legacy runtime's layout)."""
+    inv = torch.as_tensor(np.argsort(rt.order), device=state.buffers.device)
+    return flatmod.unravel_stacked(rt.spec, state.buffers[inv])

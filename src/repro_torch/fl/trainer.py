@@ -1,26 +1,34 @@
-"""FL training loop (counterpart of `repro.fl.trainer`, flat runtime).
+"""FL training loop (counterpart of `repro.fl.trainer`).
 
 `run_fl` trains one of the paper's models on synthetic federated data
 over any Table-1 topology and pairs the learning curve with the
-simulated wall clock of the same `TimingPlan` (paper Fig. 5). The loop
-advances a whole cycle of rounds per call of the cycle function and
-splits cycles at eval boundaries, so evaluation keeps per-round
-granularity.
+simulated wall clock of the same `TimingPlan` (paper Fig. 5). Two
+runtimes share the loop (`FLConfig.runtime`):
 
-Ported: the three datasets (femnist, sent140, inat), the five networks,
-every topology (star, mst, dmbst, ring, matcha, matcha_plus,
-multigraph), explicit multiplicities and silo removal, on the flat
-runtime and one device. The legacy runtime, mesh sharding, metrics,
-traces and checkpoints raise `NotImplementedError`.
+  * "flat" (default): the whole-cycle runtime (`fl/runtime.py`), one
+    cycle-function call per chunk of rounds, chunks split at eval and
+    checkpoint boundaries so both keep per-round granularity. It takes
+    the hooks: in-cycle metrics (``metrics=``), a Perfetto trace
+    (``trace=``: host spans around dispatch, eval and checkpoint, the
+    plan's simulated spans and the metrics as counters) and FL
+    checkpoints (``ckpt_dir=``/``ckpt_every``/``ckpt_keep``);
+  * "legacy": one `dpasgd.fl_round_step` a round over per-leaf trees,
+    the flat runtime's oracle (bit-equal on the CPU); it takes no hook,
+    as in the reference.
+
+Ported: everything the reference runs on one device. ``mesh=`` (silo
+sharding across devices) raises `NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, save_fl_checkpoint
 from repro_torch.core.delay import WORKLOADS
 from repro_torch.data.synthetic import make_federated_dataset
 from repro_torch.device import pin_fp32, resolve_device
@@ -29,9 +37,11 @@ from repro_torch.fl import dpasgd
 from repro_torch.fl import flat as flatmod
 from repro_torch.fl import runtime as flrt
 from repro_torch.fl.options import RuntimeOptions, adopt_runtime_options
+from repro_torch.launch.mesh import tree_map
 from repro_torch.models.small import SMALL_MODELS, SmallModelSpec
 from repro_torch.networks.registry import get_network
-from repro_torch.optim import flat_sgd
+from repro_torch.obs import MetricsSpec, TraceRecorder, write_trace
+from repro_torch.optim import flat_sgd, sgd
 
 _DATASET_MODEL = {"femnist": "femnist_cnn", "sent140": "sent140_lstm",
                   "inat": "inat_resnet"}
@@ -108,13 +118,22 @@ def _sample_round(data, n: int, cfg: FLConfig, rng) -> tuple[np.ndarray,
 
 
 def _check_ported(cfg: FLConfig) -> None:
-    if cfg.runtime == "legacy":
-        raise NotImplementedError("runtime='legacy' is not ported")
-    if cfg.runtime != "flat":
+    """The reference's refusals, then what is not ported (``mesh=``)."""
+    if (cfg.metrics is not None or cfg.trace) and cfg.runtime != "flat":
+        raise ValueError("metrics=/trace= need the flat whole-cycle "
+                         "runtime (the legacy path has no in-cycle hook)")
+    if cfg.ckpt_dir and cfg.runtime != "flat":
+        raise ValueError("ckpt_dir= needs the flat runtime (the flat "
+                         "(N, T) rows ARE the checkpoint format)")
+    if cfg.runtime not in ("flat", "legacy"):
         raise ValueError(f"unknown runtime {cfg.runtime!r}")
-    for name in ("mesh", "metrics", "trace", "ckpt_dir"):
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(f"{name}= is not ported")
+    if cfg.mesh is not None:
+        if cfg.runtime == "legacy":
+            raise ValueError("mesh= requires runtime='flat'")
+        raise NotImplementedError("mesh= is not ported")
+    if cfg.metrics is not None and not isinstance(cfg.metrics, MetricsSpec):
+        raise TypeError(f"metrics must be an obs.MetricsSpec, got "
+                        f"{type(cfg.metrics).__name__}")
 
 
 def run_fl(cfg: FLConfig, device=None) -> FLResult:
@@ -124,10 +143,15 @@ def run_fl(cfg: FLConfig, device=None) -> FLResult:
 
 def train(cfg: FLConfig, *, device=None,
           aggregator: str = "kernel") -> FLResult:
-    """`run_fl` with the aggregation path named: "kernel" (the CUDA
-    kernel on a card) or "reference" (its plain version), which is how
-    the two are held against each other on the card."""
+    """`run_fl` with the flat runtime's aggregation path named: "kernel"
+    (the CUDA kernel on a card), "reference" (its plain version) or
+    "dense" (uniform in-degree overlays), which is how the paths are held
+    against each other on the card. The legacy runtime aggregates leaf by
+    leaf with the plain ordered sum and takes only the default."""
     _check_ported(cfg)
+    if cfg.runtime == "legacy" and aggregator != "kernel":
+        raise ValueError("aggregator= picks the flat runtime's aggregation; "
+                         "the legacy runtime aggregates leaf by leaf")
     dev = resolve_device(device)
     pin_fp32(dev)
     wl = WORKLOADS[_DATASET_WL[cfg.dataset]]
@@ -148,25 +172,88 @@ def train(cfg: FLConfig, *, device=None,
                                              rounds=cfg.rounds, seed=cfg.seed,
                                              multiplicity=cfg.multiplicity)
     params0 = spec.init(torch.Generator().manual_seed(cfg.seed))
+    test_batch = {"x": torch.as_tensor(data.test_x, device=dev),
+                  "y": torch.as_tensor(data.test_y, dtype=torch.long,
+                                       device=dev)}
+
+    def accuracy(params) -> float:
+        with torch.no_grad():
+            return float(spec.accuracy(params, test_batch))
+
+    rng = np.random.default_rng(cfg.seed + 1)
+    if cfg.runtime == "legacy":
+        round_losses, eval_rounds, eval_accs = _train_legacy(
+            cfg, plan, spec, params0, data, n, rng, dev, accuracy)
+        metrics, metric_cols = None, ()
+    else:
+        round_losses, eval_rounds, eval_accs, metrics, metric_cols = \
+            _train_flat(cfg, plan, tplan, spec, params0, data, n, rng, dev,
+                        accuracy, aggregator)
+
+    # One TimingPlan, one report: the per-round axis and the scalar totals.
+    cycle = tplan.cycle_times(cfg.rounds)
+    rep = tplan.report(cfg.rounds)
+    return FLResult(config=cfg, round_losses=round_losses,
+                    eval_rounds=eval_rounds, eval_accs=eval_accs,
+                    cycle_times_ms=cycle.tolist(),
+                    mean_cycle_ms=rep.mean_cycle_ms,
+                    total_time_s=rep.total_time_s,
+                    metrics=metrics, metric_columns=tuple(metric_cols))
+
+
+def _train_flat(cfg, plan, tplan, spec, params0, data, n, rng, dev,
+                accuracy, aggregator):
+    """The flat whole-cycle runtime: one cycle-function call per chunk of
+    rounds, chunks split at eval and checkpoint boundaries; then the
+    trace, if asked for: host spans, the plan's simulated spans and the
+    metrics as counters at each round's simulated start."""
     rt = flrt.make_flat_runtime(plan, params0, n)
     opt = flat_sgd(cfg.lr, momentum=cfg.momentum)
     state = flrt.init_flat_state(flatmod.ravel(rt.spec, params0).to(dev),
                                  opt, rt)
     cycle_fn = flrt.make_cycle_fn(rt, loss_fn=spec.loss, opt=opt,
-                                  aggregator=aggregator)
-    test_batch = {"x": torch.as_tensor(data.test_x, device=dev),
-                  "y": torch.as_tensor(data.test_y, dtype=torch.long,
-                                       device=dev)}
+                                  aggregator=aggregator, metrics=cfg.metrics)
     plan_t = {k: torch.as_tensor(getattr(rt, k), device=dev)
               for k in ("strong", "coeffs", "diag")}
 
-    rng = np.random.default_rng(cfg.seed + 1)
-    r_cycle = plan.num_rounds_cycle
+    recorder = None
+    if cfg.trace:
+        recorder = TraceRecorder()
+        recorder.meta.update(dataset=cfg.dataset, network=cfg.network,
+                             topology=cfg.topology, rounds=cfg.rounds,
+                             seed=cfg.seed)
+
+    def span(name, **args):
+        if recorder is None:
+            return contextlib.nullcontext()
+        return recorder.host_span(name, **args)
+
     round_losses, eval_rounds, eval_accs = [], [], []
+    metrics_chunks: list[np.ndarray] = []
+    cum_ms = np.cumsum(tplan.cycle_times(cfg.rounds))  # simulated clock
+    ckpt_mgr = None
+    if cfg.ckpt_dir:
+        ckpt_mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep)
+
+        def emit_ckpt(k, state):
+            save_fl_checkpoint(
+                ckpt_mgr, k, state.w,
+                round=k, network=cfg.network, dataset=cfg.dataset,
+                topology=cfg.topology, t=cfg.t, seed=cfg.seed,
+                num_silos=n, multiplicity=cfg.multiplicity,
+                lr=cfg.lr, momentum=cfg.momentum, alpha=cfg.alpha,
+                sim_time_ms=float(cum_ms[k - 1]) if k else 0.0,
+                loss_tail=[float(x) for x in round_losses[-8:]],
+                eval_accs=[float(x) for x in eval_accs[-4:]])
+
+    r_cycle = plan.num_rounds_cycle
     k = 0
     while k < cfg.rounds:
         next_stop = min((k // cfg.eval_every + 1) * cfg.eval_every,
                         cfg.rounds)
+        if ckpt_mgr is not None and cfg.ckpt_every > 0:
+            next_stop = min(next_stop,
+                            (k // cfg.ckpt_every + 1) * cfg.ckpt_every)
         chunk = min(r_cycle, next_stop - k)
         per_round = [_sample_round(data, n, cfg, rng) for _ in range(chunk)]
         batches = {
@@ -176,20 +263,62 @@ def train(cfg: FLConfig, *, device=None,
                                  dtype=torch.long, device=dev)}
         pks = torch.as_tensor([(k + j) % r_cycle for j in range(chunk)],
                               device=dev)
-        state, losses = cycle_fn(state, batches, plan_t["strong"][pks],
-                                 plan_t["coeffs"][pks], plan_t["diag"][pks])
-        round_losses.extend(losses.tolist())
+        # The first chunk also builds the CUDA extension on first use.
+        with span("compile+dispatch" if k == 0 else "dispatch",
+                  start_round=k, rounds=chunk):
+            out = cycle_fn(state, batches, plan_t["strong"][pks],
+                           plan_t["coeffs"][pks], plan_t["diag"][pks])
+            state, losses = out[:2]
+            if cfg.metrics is not None:
+                metrics_chunks.append(out[2].cpu().numpy())
+            losses = losses.tolist()
+        round_losses.extend(losses)
         k += chunk
         if k % cfg.eval_every == 0 or k == cfg.rounds:
-            with torch.no_grad():
-                params = flatmod.unravel(rt.spec, state.w.mean(dim=0))
-                eval_accs.append(float(spec.accuracy(params, test_batch)))
+            with span("eval", round=k):
+                eval_accs.append(accuracy(
+                    flatmod.unravel(rt.spec, state.w.mean(dim=0))))
             eval_rounds.append(k)
+        if ckpt_mgr is not None and (
+                k == cfg.rounds or
+                (cfg.ckpt_every > 0 and k % cfg.ckpt_every == 0)):
+            with span("checkpoint", round=k):
+                emit_ckpt(k, state)
+    metrics, cols = None, ()
+    if cfg.metrics is not None:
+        metrics, cols = np.concatenate(metrics_chunks), cycle_fn.metric_columns
+    if recorder is not None:
+        recorder.add_sim_spans(tplan, cfg.rounds)
+        if metrics is not None:
+            recorder.add_metrics(metrics, cols,
+                                 np.concatenate([[0.0], cum_ms[:-1]]))
+        write_trace(cfg.trace, recorder)
+    return round_losses, eval_rounds, eval_accs, metrics, cols
 
-    cycle = tplan.cycle_times(cfg.rounds)
-    rep = tplan.report(cfg.rounds)
-    return FLResult(config=cfg, round_losses=round_losses,
-                    eval_rounds=eval_rounds, eval_accs=eval_accs,
-                    cycle_times_ms=cycle.tolist(),
-                    mean_cycle_ms=rep.mean_cycle_ms,
-                    total_time_s=rep.total_time_s)
+
+def _train_legacy(cfg, plan, spec, params0, data, n, rng, dev, accuracy):
+    """The legacy per-round runtime: one `fl_round_step` a round over
+    per-leaf stacked trees (the flat runtime's oracle)."""
+    opt = sgd(cfg.lr, momentum=cfg.momentum)
+    params0 = tree_map(lambda x: x.to(dev), params0)
+    state = dpasgd.init_fl_state(params0, opt, n, plan.src)
+    plan_t = {k: torch.as_tensor(np.ascontiguousarray(getattr(plan, k)),
+                                 device=dev)
+              for k in ("strong", "coeffs", "diag")}
+    r_cycle = plan.num_rounds_cycle
+    round_losses, eval_rounds, eval_accs = [], [], []
+    for k in range(cfg.rounds):
+        xs, ys = _sample_round(data, n, cfg, rng)
+        batches = {"x": torch.as_tensor(xs, device=dev),
+                   "y": torch.as_tensor(ys, dtype=torch.long, device=dev)}
+        pk = k % r_cycle
+        state, loss = dpasgd.fl_round_step(
+            state, batches, plan.src, plan.dst, plan_t["strong"][pk],
+            plan_t["coeffs"][pk], plan_t["diag"][pk], loss_fn=spec.loss,
+            opt=opt, local_updates=cfg.local_updates)
+        round_losses.append(float(loss))
+        if (k + 1) % cfg.eval_every == 0 or k == cfg.rounds - 1:
+            eval_accs.append(accuracy(tree_map(
+                lambda x: x.mean(dim=0), state.silo_params)))
+            eval_rounds.append(k + 1)
+    return round_losses, eval_rounds, eval_accs

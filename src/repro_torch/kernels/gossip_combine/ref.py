@@ -17,6 +17,9 @@ arithmetic the CUDA kernel pins with __fmul_rn / __fadd_rn, so the two
 agree bit for bit. It is also bit-equal to the reference's
 `segment_sum` oracle on XLA:CPU. No `index_add_`: on CUDA its atomics
 would add in a varying order.
+
+`dense_edge_aggregate`, the same sum for a uniform in-degree, over the
+buffers viewed as (N, d, T).
 """
 
 from __future__ import annotations
@@ -51,4 +54,22 @@ def edge_aggregate_ref(w: torch.Tensor, buf: torch.Tensor,
         edges = torch.tensor([rp[i] + j for i in rows], device=w.device)
         rows_t = torch.tensor(rows, device=w.device)
         acc[rows_t] = acc[rows_t] + coeffs[edges, None] * buf[edges]
+    return diag[:, None] * w + acc
+
+
+def dense_edge_aggregate(w: torch.Tensor, buf: torch.Tensor,
+                         cmat: torch.Tensor,
+                         diag: torch.Tensor) -> torch.Tensor:
+    """Uniform in-degree lowering of `edge_aggregate_ref`: buf (N*d, T)
+    dst-sorted, cmat (N, d). The sorted buffers are viewed as (N, d, T)
+    and summed densely, no gather: from zero, the products in ascending
+    edge order, each rounded before its add, then ``diag*w``: the same
+    adds as `edge_aggregate_ref` and the CUDA kernel, bit for bit. Only
+    valid when every destination has exactly d incoming edges (any ring
+    overlay: d=2)."""
+    n, d = cmat.shape
+    bm = buf.reshape(n, d, -1)
+    acc = torch.zeros_like(w)
+    for j in range(d):
+        acc = acc + cmat[:, j, None] * bm[:, j]
     return diag[:, None] * w + acc

@@ -1,4 +1,5 @@
-"""Silo networks: the paper's five, behind one registry."""
+"""Silo networks: the paper's five and the generated `wan<K>` family,
+behind one registry."""
 
 from repro_torch.networks.registry import get_network, list_networks
 from repro_torch.networks.zoo import NetworkSpec, Silo

@@ -8,7 +8,8 @@ plus a per-hop constant. The site tables and the float operations are
 the reference's, so both packages build bit-identical matrices.
 
 Silo counts match the paper's Table 3: Gaia 11, Amazon 22, Geant 40,
-Exodus 79, Ebone 87.
+Exodus 79, Ebone 87. `_make_wan` generates a WAN of any size over the
+same metros (the registry's ``wan<K>`` family).
 """
 
 from __future__ import annotations
@@ -288,3 +289,16 @@ def _make_ebone(capacity_gbps: float = 10.0) -> NetworkSpec:
     sites = _expand_metros(_EBONE_METROS, 87, seed=87)
     return _build("ebone", sites, capacity_gbps=capacity_gbps,
                   hetero_seed=87, capacity_jitter=0.25, compute_jitter=0.20)
+
+
+def _make_wan(num_silos: int = 64, capacity_gbps: float = 10.0) -> NetworkSpec:
+    """Generated planetary WAN with ``num_silos`` sites: not a paper
+    network, but the same latency model over the union of the metro
+    anchors above, for runs that want more silos than the paper's
+    networks have. Deterministic in ``num_silos``."""
+    metros = list(dict.fromkeys(_EXODUS_METROS + _EBONE_METROS
+                                + [(n, la, lo) for n, la, lo in _AMAZON_SITES]))
+    sites = _expand_metros(metros, num_silos, seed=1000 + num_silos)
+    return _build(f"wan{num_silos}", sites, capacity_gbps=capacity_gbps,
+                  hetero_seed=1000 + num_silos, capacity_jitter=0.25,
+                  compute_jitter=0.20)

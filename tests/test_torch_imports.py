@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: `repro_torch` and `chip_smoke.py`
-import neither jax, networkx nor the reference package `repro`."""
+import neither jax, networkx, the reference package `repro`, msgpack nor
+ml_dtypes (the card's machine has none of them)."""
 
 import ast
 import os
@@ -8,7 +9,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "networkx", "repro")
+FORBIDDEN = ("jax", "networkx", "repro", "msgpack", "ml_dtypes")
 
 
 def test_package_imports_nothing_forbidden():

@@ -795,3 +795,126 @@ def test_ssm_prefill_and_serve_step_launch_the_kernels(cuda, arch):
         b, st[1] = tf.decode_step(params, cfg, toks[:, t:t + 1], st[1],
                                   impl="reference")
         torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# the rest of run_fl on the card: in-cycle metrics, checkpoints, wan64
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """Deterministic algorithms in full fp32, as `run_fl` runs, restored
+    afterwards."""
+    from repro_torch.device import pin_fp32
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.backends.cudnn.benchmark,
+              torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    pin_fp32(cuda)
+    yield cuda
+    torch.use_deterministic_algorithms(before[0], warn_only=True)
+    (torch.backends.cudnn.benchmark, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = before[1:]
+
+
+@pytest.mark.cuda
+def test_cycle_with_metrics_keeps_state_bitwise(deterministic):
+    """The FEMNIST cycle on the card with `metrics=` leaves w, buffers,
+    momentum and losses bit-equal to the cycle without; the count
+    columns equal what the strong masks give."""
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl import dpasgd, flat as flatmod, runtime as flrt
+    from repro_torch.models.small import FEMNIST_CNN
+    from repro_torch.networks.registry import get_network
+    from repro_torch.obs import MetricsSpec
+    from repro_torch.optim import flat_sgd
+
+    dev = deterministic
+    n, r = 11, 4
+    plan, _ = dpasgd.make_round_schedule("multigraph", get_network("gaia"),
+                                         FEMNIST)
+    params = FEMNIST_CNN.init(torch.Generator().manual_seed(0))
+    rt = flrt.make_flat_runtime(plan, params, n)
+    opt = flat_sgd(0.05, momentum=0.9)
+    data = make_federated_dataset("femnist", n, samples_per_silo=32)
+    rng = np.random.default_rng(1)
+    per = [[data.sample_batch(s, 8, rng) for s in range(n)]
+           for _ in range(r)]
+    batches = {k: torch.as_tensor(np.stack([[np.stack([b[k] for b in p])]
+                                            for p in per]), device=dev)
+               for k in ("x", "y")}
+    batches["y"] = batches["y"].long()
+    args = [torch.as_tensor(getattr(rt, k)[:r], device=dev)
+            for k in ("strong", "coeffs", "diag")]
+    w0 = flatmod.ravel(rt.spec, params).to(dev)
+    outs = [flrt.make_cycle_fn(rt, loss_fn=FEMNIST_CNN.loss, opt=opt,
+                               metrics=ms)(
+        flrt.init_flat_state(w0, opt, rt), batches, *args)
+        for ms in (None, MetricsSpec())]
+    (off, loss_off), (on, loss_on, mets) = outs
+    for a, b in ((on.w, off.w), (on.buffers, off.buffers),
+                 (on.opt_state["mu"], off.opt_state["mu"]),
+                 (loss_on, loss_off)):
+        assert torch.equal(a, b)
+    mets = mets.cpu().numpy()
+    assert mets.shape == (r, 17) and np.isfinite(mets).all()
+    n_strong = rt.strong[:r].sum(axis=1).astype(np.float32)
+    e2 = np.float32(rt.strong.shape[1])
+    np.testing.assert_array_equal(mets[:, 14], np.float32(1) - n_strong / e2)
+    np.testing.assert_array_equal(mets[:, 16],
+                                  n_strong * np.float32(rt.spec.size * 4))
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_card_tensors_restores_bitwise(cuda, tmp_path):
+    """Rows and a bf16 leaf on the card are written once to the host and
+    restore bit for bit; the bytes equal those written from host copies."""
+    from repro_torch.checkpoint import (CheckpointManager, load_fl_checkpoint,
+                                        restore_pytree, save_fl_checkpoint,
+                                        save_pytree)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn((11, 1_280_478), generator=gen, device=cuda)
+    save_fl_checkpoint(CheckpointManager(tmp_path / "card"), 15, w, round=15)
+    save_fl_checkpoint(CheckpointManager(tmp_path / "host"), 15, w.cpu(),
+                       round=15)
+    assert (tmp_path / "card" / "step_15.msgpack").read_bytes() == \
+        (tmp_path / "host" / "step_15.msgpack").read_bytes()
+    got = load_fl_checkpoint(tmp_path / "card")
+    assert torch.equal(torch.from_numpy(got.w.copy()).to(cuda), w)
+    b = torch.randn((7, 33), generator=gen, device=cuda).to(torch.bfloat16)
+    save_pytree(tmp_path / "bf16.msgpack", {"b": b, "s": b[:, ::2]})
+    back = restore_pytree(tmp_path / "bf16.msgpack")
+    assert back["b"].dtype == torch.bfloat16
+    assert torch.equal(back["b"].to(cuda), b)
+    assert torch.equal(back["s"].to(cuda), b[:, ::2])
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_version_on_wan64(cuda):
+    """`edge_aggregate` at the wan64 multigraph's shape (N = 64, 2E =
+    128, FEMNIST's T)."""
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.fl.dpasgd import make_round_schedule
+    from repro_torch.networks.registry import get_network
+
+    plan, _ = make_round_schedule("multigraph", get_network("wan64"),
+                                  FEMNIST)
+    n, e2 = 64, len(plan.dst)
+    assert e2 == 128
+    order, row_ptr = ops.csr_sort(plan.dst, n)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    k = 1 % plan.num_rounds_cycle
+    args = (torch.randn((n, 1_280_478), generator=gen, device=cuda),
+            torch.randn((e2, 1_280_478), generator=gen, device=cuda),
+            torch.as_tensor(plan.coeffs[k][order], device=cuda),
+            torch.as_tensor(row_ptr, device=cuda),
+            torch.as_tensor(plan.diag[k], device=cuda))
+    before = ops.edge_aggregate.launches
+    out = ops.edge_aggregate(*args)
+    torch.cuda.synchronize()
+    assert ops.edge_aggregate.launches == before + 1
+    assert torch.equal(out, edge_aggregate_ref(*args))

@@ -132,10 +132,16 @@ def test_run_fl_matches_reference(monkeypatch, change):
     assert_same_run(got, ref, rtol=1e-5, acc_atol=1 / 512)
 
 
-@pytest.mark.parametrize("change", [
-    dict(runtime="legacy"), dict(mesh=2), dict(trace="t.json"),
-    dict(ckpt_dir="ck"), dict(metrics=object())],
+@pytest.mark.parametrize("change,err", [
+    (dict(runtime="legacy", mesh=2), ValueError),
+    (dict(mesh=2), NotImplementedError),
+    (dict(runtime="legacy", trace="t.json"), ValueError),
+    (dict(runtime="legacy", ckpt_dir="ck"), ValueError),
+    (dict(metrics=object()), TypeError)],
     ids=["legacy", "mesh", "trace", "ckpt_dir", "metrics"])
-def test_run_fl_rejects_unported(change):
-    with pytest.raises(NotImplementedError):
+def test_run_fl_rejects_unported(change, err):
+    """`mesh=` is the one option not ported; the legacy runtime refuses a
+    mesh, a trace and checkpoints as the reference does, and metrics must
+    be a `MetricsSpec`."""
+    with pytest.raises(err):
         prun_fl(PConfig(rounds=1, **change), device="cpu")
