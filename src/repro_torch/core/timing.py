@@ -1,5 +1,4 @@
-"""Timing engine, array-form Eq. 3/4/5 (counterpart of `repro.core.timing`
-without the batched `TimingGrid`).
+"""Timing engine, array-form Eq. 3/4/5 (counterpart of `repro.core.timing`).
 
 One `TimingPlan` per (topology, network, workload[, t]) is the single
 source of truth for the state schedule and the wall-clock axis. Two
@@ -271,7 +270,13 @@ class TimingPlan:
                 workload=self.workload, num_rounds=num_rounds,
                 mean_cycle_ms=mean,
                 total_time_s=mean * num_rounds / 1000.0)
-        taus = self.cycle_times(num_rounds)
+        return self._report_from_taus(self.cycle_times(num_rounds),
+                                      num_rounds)
+
+    def _report_from_taus(self, taus: np.ndarray,
+                          num_rounds: int) -> CycleTimeReport:
+        """Recurrence-cell report from a tau series (the per-cell one, or
+        the `TimingGrid` row of this cell): one reduction for both."""
         iso = self.isolated_per_round(num_rounds)
         return CycleTimeReport(
             topology=self.topology, network=self.network,
@@ -512,13 +517,15 @@ def multiplicity_vector_plan(net: NetworkSpec, wl: Workload,
 
 
 def multigraph_timing_plan(net: NetworkSpec, wl: Workload, *, t: int = 5,
+                           overlay: SimpleGraph | None = None,
                            cap_states: int | None = CAP_STATES) -> TimingPlan:
-    """Full multigraph pipeline: Christofides overlay -> Algorithm 1 ->
-    Algorithm 2 -> Eq. 4 arrays."""
+    """Full multigraph pipeline: overlay (Christofides unless given) ->
+    Algorithm 1 -> Algorithm 2 -> Eq. 4 arrays."""
     from repro_torch.core.multigraph import build_multigraph
     from repro_torch.design.catalog import ring_topology
 
-    overlay = ring_topology(net, wl).graph
+    if overlay is None:
+        overlay = ring_topology(net, wl).graph
     mg = build_multigraph(net, wl, overlay, t=t)
     return multiplicity_timing_plan(
         net, wl, overlay, mg.multiplicity, name=f"multigraph(t={t})",
@@ -690,16 +697,245 @@ def sampled_cycle_times(design, net: NetworkSpec, wl: Workload,
 
 
 def sampled_timing_plan(name: str, net: NetworkSpec, wl: Workload, design,
-                        sample_rounds: int) -> TimingPlan:
+                        sample_rounds: int, sampler=None) -> TimingPlan:
     """Per-round random topologies (MATCHA): per-round Eq. 5 cycle
-    times for ``sample_rounds`` rounds, made on first use."""
-
-    def sampler(design=design, net=net, wl=wl, rounds=sample_rounds):
-        return sampled_cycle_times(design, net, wl, rounds)
+    times for ``sample_rounds`` rounds, made on first use. ``sampler``
+    replaces `sampled_cycle_times` with a shared computation of the same
+    bits (`design.batched.DesignContext.sampler`)."""
+    if sampler is None:
+        def sampler(design=design, net=net, wl=wl, rounds=sample_rounds):
+            return sampled_cycle_times(design, net, wl, rounds)
     return _cyclic_plan(name, net, wl, None, sampler=sampler)
 
 
-#: splitmix64's odd 64-bit mixing constants (MATCHA's counter-based
-#: activation draws, `design.catalog._counter_uniform`).
+# ---------------------------------------------------------------------------
+# batched timing grid: all recurrence cells in one array program
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TimingGrid:
+    """Many TimingPlans on one stacked cell axis: every recurrence cell
+    advances together as ``(C, E_max)`` array ops over padded edge lists,
+    each with its own periodic-orbit short-circuit (a vectorized snapshot
+    hash, verified exactly before it fires). Cyclic cells keep their
+    periods. Every row is bit for bit ``plan.cycle_times(num_rounds)``.
+    """
+
+    plans: tuple[TimingPlan, ...]
+    rec_rows: tuple[int, ...]           # indices of recurrence cells
+    # stacked recurrence arrays, padded to (C, S_max, E_max):
+    d0: np.ndarray | None               # (C, E_max) f64, pad 0
+    pair_comp: np.ndarray | None        # (C, E_max) f64, pad 0
+    strong: np.ndarray | None           # (C, S_max, E_max) bool, pad False
+    trans: np.ndarray | None            # (C, S_max, E_max) int8, pad T_SS
+    lone_comp: np.ndarray | None        # (C, S_max) f64, pad -inf
+    num_states: np.ndarray | None       # (C,) int64
+
+    @property
+    def num_cells(self) -> int:
+        return len(self.plans)
+
+    def _rec_taus(self, num_rounds: int, retire: bool,
+                  backend: str) -> np.ndarray:
+        """(len(rec_rows), num_rounds) recurrence taus on the host. The
+        device grid is not ported: any ``backend`` but "numpy" raises."""
+        if backend != "numpy":
+            raise ValueError(f"unknown timing backend {backend!r} "
+                             "(this package has 'numpy' only)")
+        if not self.rec_rows:
+            return np.empty((0, num_rounds), np.float64)
+        return _grid_recurrence_taus(
+            self.d0, self.pair_comp, self.strong, self.trans,
+            self.lone_comp, self.num_states, num_rounds, retire=retire)
+
+    def cycle_time_matrix(self, num_rounds: int, retire: bool = True,
+                          backend: str = "numpy") -> np.ndarray:
+        """(num_cells, num_rounds) f64 ms: every cell's tau series."""
+        out = np.empty((len(self.plans), num_rounds), np.float64)
+        rec = self._rec_taus(num_rounds, retire, backend)
+        for row, c in enumerate(self.rec_rows):
+            out[c] = rec[row]
+        for c, plan in enumerate(self.plans):
+            if plan.kind != "recurrence":
+                out[c] = plan.cycle_times(num_rounds)
+        return out
+
+    def reports(self, num_rounds: int, retire: bool = True,
+                backend: str = "numpy") -> list[CycleTimeReport]:
+        """One CycleTimeReport per plan, recurrence rows batched."""
+        rec_taus = self._rec_taus(num_rounds, retire, backend)
+        row_of = {c: row for row, c in enumerate(self.rec_rows)}
+        out = []
+        for c, plan in enumerate(self.plans):
+            if plan.kind == "recurrence":
+                out.append(plan._report_from_taus(rec_taus[row_of[c]],
+                                                  num_rounds))
+            else:
+                out.append(plan.report(num_rounds))
+        return out
+
+
+def build_timing_grid(plans: list[TimingPlan]) -> TimingGrid:
+    """Stack the recurrence cells of ``plans`` into one padded program.
+    Padding is inert: phantom edges have ``d0 = 0``, code ``T_SS`` in
+    every state and a False strong mask; phantom states are never indexed
+    because each cell's phase is ``k % S_c``."""
+    rec_rows = tuple(c for c, p in enumerate(plans)
+                     if p.kind == "recurrence")
+    if not rec_rows:
+        return TimingGrid(plans=tuple(plans), rec_rows=(), d0=None,
+                          pair_comp=None, strong=None, trans=None,
+                          lone_comp=None, num_states=None)
+    cells = [plans[c] for c in rec_rows]
+    num_cells = len(cells)
+    # >= 1 so a zero-pair cell reduces over a phantom edge, not an empty
+    # axis.
+    e_max = max(max((len(p.d0) for p in cells), default=0), 1)
+    s_max = max(p.num_states for p in cells)
+    d0 = np.zeros((num_cells, e_max), np.float64)
+    pair_comp = np.zeros((num_cells, e_max), np.float64)
+    strong = np.zeros((num_cells, s_max, e_max), bool)
+    trans = np.full((num_cells, s_max, e_max), T_SS, np.int8)
+    lone = np.full((num_cells, s_max), -np.inf, np.float64)
+    num_states = np.empty(num_cells, np.int64)
+    for row, p in enumerate(cells):
+        e, s = len(p.d0), p.num_states
+        d0[row, :e] = p.d0
+        pair_comp[row, :e] = p.pair_comp
+        strong[row, :s, :e] = p.strong
+        trans[row, :s, :e] = p.trans
+        lone[row, :s] = p.lone_comp
+        num_states[row] = s
+    return TimingGrid(plans=tuple(plans), rec_rows=rec_rows, d0=d0,
+                      pair_comp=pair_comp, strong=strong, trans=trans,
+                      lone_comp=lone, num_states=num_states)
+
+
+#: splitmix64's odd 64-bit mixing constants: the grid's snapshot hash
+#: and MATCHA's counter-based activation draws
+#: (`design.catalog._counter_uniform`).
 SPLITMIX64_CONSTANTS = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9,
                         0x94D049BB133111EB)
+
+
+def _snapshot_hashes(d_cur: np.ndarray, d_prev: np.ndarray,
+                     tau: np.ndarray, phase: np.ndarray,
+                     weights: np.ndarray) -> np.ndarray:
+    """(C,) uint64: one mixed hash per cell of this round's ``(phase,
+    d_k, d_{k-1}, tau_k)`` snapshot."""
+    a, b, c = (np.uint64(x) for x in SPLITMIX64_CONSTANTS)
+    h1 = (d_cur.view(np.uint64) * weights).sum(axis=1)
+    h2 = (d_prev.view(np.uint64) * weights).sum(axis=1)
+    h = h1 * a ^ h2 * b ^ np.ascontiguousarray(tau).view(np.uint64) * c
+    return h ^ phase.astype(np.uint64) * a
+
+
+def _grid_recurrence_taus(d0, pair_comp, strong, trans, lone_comp,
+                          num_states, num_rounds: int,
+                          retire: bool = True) -> np.ndarray:
+    """Eq. 4/5 for all cells at once, bit for bit the per-cell
+    `_recurrence_taus`: each branch applies the per-cell formula and
+    `np.where` only selects; a cell's orbit short-circuit fires only on a
+    snapshot recurrence verified exactly.
+
+    ``retire=True`` drops a row from the stacked buffers the round its
+    orbit locks and tiles its tail at once, so the live loop narrows to
+    the cells still in transient. ``retire=False`` steps every row until
+    the slowest locks. Both give the same bits: a locked cell's further
+    stepping is the tiled replay.
+    """
+    num_cells, e_max = d0.shape
+    rng = np.random.default_rng(0x5EED)
+    weights = rng.integers(0, 2**63, e_max, np.uint64) * np.uint64(2) \
+        + np.uint64(1)
+    taus = np.empty((num_cells, num_rounds), np.float64)
+    act = np.arange(num_cells)           # original ids of the live rows
+    d_cur = d0.copy()
+    d_prev = d0.copy()
+    prev_tau = np.zeros(num_cells)
+    # hist[c][k] = cell c's d_cur after round k (appended while live)
+    hist: list[list[np.ndarray]] = [[] for _ in range(num_cells)]
+    seen: list[dict[int, list[int]]] = [dict() for _ in range(num_cells)]
+    done = np.zeros(num_cells, bool)
+    period = np.zeros(num_cells, np.int64)
+    locked_at = np.full(num_cells, -1, np.int64)
+    k = 0
+    while k < num_rounds and act.size:
+        s = k % num_states[act]                       # live-row phases
+        st = strong[act, s]
+        if k == 0:
+            tau = np.max(np.where(st, d_cur, -np.inf), axis=1)
+        else:
+            code = trans[act, s]
+            ws = np.maximum(pair_comp[act], d_cur - d_prev)
+            d_next = np.where(
+                code == T_SS, d_cur, np.where(
+                    code == T_WW, prev_tau[:, None] + d_cur, np.where(
+                        code == T_SW, prev_tau[:, None], ws)))
+            d_prev, d_cur = d_cur, d_next
+            tau = np.max(np.where(st, d_cur, -np.inf), axis=1)
+        tau = np.maximum(tau, lone_comp[act, s])
+        taus[act, k] = tau
+        prev_tau = tau
+        h = _snapshot_hashes(d_cur, d_prev, tau, s, weights)
+        newly: list[int] = []
+        for row, c in enumerate(act):
+            if done[c]:
+                continue
+            hist[c].append(d_cur[row].copy())
+            cands = seen[c].setdefault(int(h[row]), [])
+            for k0 in cands:
+                if (k - k0) % num_states[c]:
+                    continue               # phase mismatch (hash lied)
+                prev0 = hist[c][k0 - 1] if k0 else d0[c]
+                if (taus[c, k] == taus[c, k0]
+                        and np.array_equal(hist[c][k], hist[c][k0])
+                        and np.array_equal(hist[c][k - 1] if k
+                                           else d0[c], prev0)):
+                    done[c] = True
+                    period[c] = k - k0
+                    locked_at[c] = k
+                    newly.append(row)
+                    break
+            else:
+                cands.append(k)
+        k += 1
+        if retire:
+            if newly:
+                keep = np.ones(act.size, bool)
+                keep[newly] = False
+                act = act[keep]
+                d_cur = d_cur[keep]
+                d_prev = d_prev[keep]
+                prev_tau = prev_tau[keep]
+        elif done.all():
+            break
+    # Locked rows replay their orbit: retired rows from their own lock
+    # round, non-retired ones from the common exit round k.
+    for c in np.flatnonzero(locked_at >= 0):
+        start = int(locked_at[c]) + 1 if retire else k
+        if start < num_rounds:
+            p = int(period[c])
+            taus[c, start:] = _tile_to(taus[c, start - p:start],
+                                       num_rounds - start)
+    return taus
+
+
+def make_timing_plan(topology: str, net: NetworkSpec, wl: Workload, *,
+                     t: int = 5, cap_states: int | None = CAP_STATES,
+                     seed: int = 0, sample_rounds: int = 512,
+                     overlay: SimpleGraph | None = None,
+                     ctx=None) -> TimingPlan:
+    """Timing plan of any Table-1 topology through its design family
+    (`design.catalog.get_family`). ``ctx`` (a
+    `design.batched.DesignContext`) shares construction artifacts across
+    cells; ``overlay`` gives the ring and multigraph families their
+    overlay. Either way the plan's bits are the same."""
+    from repro_torch.design import catalog
+
+    fam = catalog.get_family(topology, t=t, cap_states=cap_states,
+                             seed=seed, sample_rounds=sample_rounds)
+    if topology in ("ring", "multigraph"):
+        return fam.timing_plan(net, wl, ctx=ctx, overlay=overlay)
+    return fam.timing_plan(net, wl, ctx=ctx)

@@ -1,5 +1,10 @@
-"""Design catalog: the Table-1 topologies (counterpart of
-`repro.design.catalog` without the `DesignFamily` registry).
+"""Design catalog: the Table-1 topologies and their design families
+(counterpart of `repro.design.catalog`). Each `DesignFamily` owns both
+the construction of a design and its timing semantics (`timing_plan`);
+`get_family` is the one dispatch table. Construction functions take
+optional precomputed inputs (the nominal delay matrix, a matching
+decomposition), which `design.batched` shares across a sweep grid
+without changing a bit.
 
 networkx is not a dependency of this package, so the designs that call
 it in the reference follow its order of operations here instead, ties
@@ -33,7 +38,8 @@ import numpy as np
 
 from repro_torch.core import timing
 from repro_torch.core.delay import Workload
-from repro_torch.core.graph import Pair, SimpleGraph, canon, make_graph
+from repro_torch.core.graph import (Multigraph, Pair, SimpleGraph, canon,
+                                    make_graph)
 from repro_torch.design import blossom
 from repro_torch.networks.zoo import NetworkSpec
 
@@ -146,18 +152,22 @@ def _prim_edges(d: np.ndarray) -> list[tuple[int, int]]:
     return out
 
 
-def mst_topology(net: NetworkSpec, wl: Workload) -> StaticTopology:
+def mst_topology(net: NetworkSpec, wl: Workload,
+                 d: np.ndarray | None = None) -> StaticTopology:
     """MST: Prim's minimum spanning tree over nominal pair delays."""
-    d = nominal_delay_matrix(net, wl)
+    if d is None:
+        d = nominal_delay_matrix(net, wl)
     return StaticTopology("mst", make_graph(
         net.num_silos, [canon(i, j) for i, j in _prim_edges(d)]))
 
 
-def dmbst_topology(net: NetworkSpec, wl: Workload) -> StaticTopology:
+def dmbst_topology(net: NetworkSpec, wl: Workload,
+                   d: np.ndarray | None = None) -> StaticTopology:
     """delta-MBST: greedy Kruskal over nominal delays with a degree cap;
     if the cap leaves a component unjoinable, the smallest-delay
     violating edges are admitted."""
-    d = nominal_delay_matrix(net, wl)
+    if d is None:
+        d = nominal_delay_matrix(net, wl)
     n = net.num_silos
     edges = sorted(
         ((float(d[i, j]), i, j) for i in range(n) for j in range(i + 1, n)))
@@ -407,20 +417,31 @@ def _matching_decomposition(graph: SimpleGraph) -> list[tuple[Pair, ...]]:
     return [tuple(sorted(v)) for _, v in sorted(classes.items())]
 
 
-def matcha_topology(net: NetworkSpec, wl: Workload,
-                    seed: int = 0) -> MatchaTopology:
-    matchings = tuple(_matching_decomposition(connectivity_graph(net)))
+def matcha_topology(net: NetworkSpec, wl: Workload, seed: int = 0,
+                    matchings: tuple | None = None) -> MatchaTopology:
+    if matchings is None:
+        matchings = tuple(_matching_decomposition(connectivity_graph(net)))
     return MatchaTopology("matcha", net.num_silos, matchings, _MATCHA_BUDGET,
                           seed)
 
 
-def matcha_plus_topology(net: NetworkSpec, wl: Workload,
-                         seed: int = 0) -> MatchaTopology:
-    if net.name in ("gaia", "amazon"):
-        base = connectivity_graph(net)  # cloud networks are fully meshed
-    else:
-        base = physical_graph(net)
-    matchings = tuple(_matching_decomposition(base))
+#: Cloud networks, whose regions are fully meshed: MATCHA+ decomposes
+#: their connectivity graph, as MATCHA does, and not a physical underlay.
+_FULLY_MESHED = ("gaia", "amazon")
+
+
+def matcha_plus_base(net: NetworkSpec) -> SimpleGraph:
+    """The graph MATCHA+ decomposes into matchings: the connectivity
+    graph of a cloud network, else the approximate physical underlay."""
+    if net.name in _FULLY_MESHED:
+        return connectivity_graph(net)
+    return physical_graph(net)
+
+
+def matcha_plus_topology(net: NetworkSpec, wl: Workload, seed: int = 0,
+                         matchings: tuple | None = None) -> MatchaTopology:
+    if matchings is None:
+        matchings = tuple(_matching_decomposition(matcha_plus_base(net)))
     return MatchaTopology("matcha_plus", net.num_silos, matchings,
                           _MATCHA_BUDGET, seed)
 
@@ -442,3 +463,160 @@ def build_topology(name: str, net: NetworkSpec, wl: Workload,
     except KeyError:
         raise KeyError(f"unknown topology {name!r}; have {sorted(TOPOLOGIES)} "
                        "(+ 'multigraph' via fl.dpasgd)") from None
+
+
+# ---------------------------------------------------------------------------
+# Design families: construction + timing semantics in one object
+# ---------------------------------------------------------------------------
+
+
+class DesignFamily(Protocol):
+    """One named topology family: ``build`` constructs the design (a
+    `TopologyDesign` or a `Multigraph`), ``timing_plan`` the
+    `timing.TimingPlan` with the family's timing semantics (STAR's
+    sequential gather and broadcast, RING's max-plus throughput, MATCHA's
+    per-round sampling, the multigraph's Eq. 4 recurrence). ``ctx`` (a
+    `design.batched.DesignContext`, or None) supplies shared construction
+    artifacts; the outputs are the same bits either way."""
+
+    name: str
+
+    def build(self, net: NetworkSpec, wl: Workload, ctx=None): ...
+
+    def timing_plan(self, net: NetworkSpec, wl: Workload, *,
+                    ctx=None) -> timing.TimingPlan: ...
+
+
+@dataclasses.dataclass(frozen=True)
+class StarFamily:
+    name: str = "star"
+
+    def build(self, net, wl, ctx=None):
+        return star_topology(net, wl)
+
+    def timing_plan(self, net, wl, *, ctx=None):
+        return timing.star_timing_plan(net, wl)
+
+
+@dataclasses.dataclass(frozen=True)
+class RingFamily:
+    name: str = "ring"
+
+    def build(self, net, wl, ctx=None):
+        if ctx is not None:
+            return StaticTopology("ring", ctx.ring_graph(wl))
+        return ring_topology(net, wl)
+
+    def timing_plan(self, net, wl, *, ctx=None,
+                    overlay: SimpleGraph | None = None):
+        if overlay is None:
+            overlay = self.build(net, wl, ctx).graph
+        return timing.ring_timing_plan(net, wl, graph=overlay)
+
+
+@dataclasses.dataclass(frozen=True)
+class MstFamily:
+    name: str = "mst"
+
+    def build(self, net, wl, ctx=None):
+        return mst_topology(net, wl,
+                            d=ctx.nominal(wl) if ctx is not None else None)
+
+    def timing_plan(self, net, wl, *, ctx=None):
+        return timing.static_timing_plan(
+            self.name, net, wl, self.build(net, wl, ctx).round_graph(0))
+
+
+@dataclasses.dataclass(frozen=True)
+class DmbstFamily:
+    name: str = "dmbst"
+
+    def build(self, net, wl, ctx=None):
+        return dmbst_topology(net, wl,
+                              d=ctx.nominal(wl) if ctx is not None else None)
+
+    def timing_plan(self, net, wl, *, ctx=None):
+        return timing.static_timing_plan(
+            self.name, net, wl, self.build(net, wl, ctx).round_graph(0))
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchaFamily:
+    name: str = "matcha"
+    plus: bool = False
+    seed: int = 0
+    sample_rounds: int = 512
+
+    def build(self, net, wl, ctx=None):
+        builder = matcha_plus_topology if self.plus else matcha_topology
+        matchings = None
+        if ctx is not None:
+            matchings = (ctx.matcha_plus_matchings() if self.plus
+                         else ctx.matcha_matchings())
+        return builder(net, wl, seed=self.seed, matchings=matchings)
+
+    def timing_plan(self, net, wl, *, ctx=None):
+        design = self.build(net, wl, ctx)
+        sampler = None
+        if ctx is not None:
+            sampler = ctx.sampler(design, wl, self.sample_rounds)
+        return timing.sampled_timing_plan(
+            self.name, net, wl, design, sample_rounds=self.sample_rounds,
+            sampler=sampler)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultigraphFamily:
+    name: str = "multigraph"
+    t: int = 5
+    cap_states: int | None = timing.CAP_STATES
+
+    def build(self, net, wl, ctx=None,
+              overlay: SimpleGraph | None = None) -> Multigraph:
+        from repro_torch.core.multigraph import build_multigraph
+
+        if overlay is None:
+            overlay = (ctx.ring_graph(wl) if ctx is not None
+                       else ring_topology(net, wl).graph)
+        return build_multigraph(net, wl, overlay, t=self.t)
+
+    def timing_plan(self, net, wl, *, ctx=None,
+                    overlay: SimpleGraph | None = None):
+        if overlay is None and ctx is not None:
+            overlay = ctx.ring_graph(wl)
+        return timing.multigraph_timing_plan(
+            net, wl, t=self.t, overlay=overlay, cap_states=self.cap_states)
+
+
+#: The Table-1 catalog, as zero-config instances; `get_family` sets the
+#: knobs each one takes (`_FAMILY_KNOBS`).
+DESIGN_FAMILIES = {
+    "star": StarFamily(),
+    "matcha": MatchaFamily(),
+    "matcha_plus": MatchaFamily(name="matcha_plus", plus=True),
+    "mst": MstFamily(),
+    "dmbst": DmbstFamily(),
+    "ring": RingFamily(),
+    "multigraph": MultigraphFamily(),
+}
+
+_FAMILY_KNOBS = {
+    "matcha": ("seed", "sample_rounds"),
+    "matcha_plus": ("seed", "sample_rounds"),
+    "multigraph": ("t", "cap_states"),
+}
+
+
+def get_family(name: str, *, t: int = 5,
+               cap_states: int | None = timing.CAP_STATES,
+               seed: int = 0, sample_rounds: int = 512) -> DesignFamily:
+    """The design family ``name`` with its knobs set."""
+    try:
+        base = DESIGN_FAMILIES[name]
+    except KeyError:
+        raise KeyError(f"unknown topology {name!r}; have "
+                       f"{sorted(DESIGN_FAMILIES)}") from None
+    knobs = dict(t=t, cap_states=cap_states, seed=seed,
+                 sample_rounds=sample_rounds)
+    kw = {k: knobs[k] for k in _FAMILY_KNOBS.get(name, ())}
+    return dataclasses.replace(base, **kw) if kw else base

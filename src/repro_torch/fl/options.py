@@ -35,6 +35,11 @@ def adopt_runtime_options(cfg) -> None:
     """Reconcile a config's legacy runtime fields with its embedded
     ``options``; call from ``__post_init__``."""
     if cfg.options is not None:
+        if isinstance(cfg.options, dict):
+            # a JSON round trip (`config_cli.load`): `dataclasses.asdict`
+            # flattened the embedded options into a mapping
+            object.__setattr__(cfg, "options",
+                               RuntimeOptions(**cfg.options))
         if not isinstance(cfg.options, RuntimeOptions):
             raise TypeError(f"options must be a RuntimeOptions, got "
                             f"{type(cfg.options).__name__}")

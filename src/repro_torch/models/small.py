@@ -79,11 +79,20 @@ def _conv_same(x: torch.Tensor, w: torch.Tensor,
     return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
 
 
+def _maxpool2(h: torch.Tensor) -> torch.Tensor:
+    """2 x 2 max pool of (B, C, H, W) by reshape and `amax`, whose
+    gradient is split evenly among a window's equal maxima, as the
+    reference's reshape-and-max pool under `jax.grad` (`F.max_pool2d`
+    would send it all to the first maximum)."""
+    b, c, hh, ww = h.shape
+    return h.reshape(b, c, hh // 2, 2, ww // 2, 2).amax(dim=(3, 5))
+
+
 def femnist_cnn_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x (B, 28, 28, 1) NHWC -> logits (B, 62)."""
     h = x.permute(0, 3, 1, 2)
-    h = F.max_pool2d(torch.relu(_conv_same(h, p["c1"])), 2)
-    h = F.max_pool2d(torch.relu(_conv_same(h, p["c2"])), 2)
+    h = _maxpool2(torch.relu(_conv_same(h, p["c1"])))
+    h = _maxpool2(torch.relu(_conv_same(h, p["c2"])))
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # NHWC flatten
     h = torch.relu(h @ p["fc1"] + p["b1"])
     return h @ p["fc2"] + p["b2"]

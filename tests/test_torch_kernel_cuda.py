@@ -918,3 +918,38 @@ def test_kernel_equals_plain_version_on_wan64(cuda):
     torch.cuda.synchronize()
     assert ops.edge_aggregate.launches == before + 1
     assert torch.equal(out, edge_aggregate_ref(*args))
+
+
+@pytest.mark.cuda
+def test_frontier_candidate_equals_run_fl_on_card(cuda):
+    """One `evaluate_frontier` candidate on the card (Algorithm 1's t = 3
+    vector on gaia, 6 rounds) equals `evaluate_design`, i.e. `run_fl` of
+    the same vector, bit for bit in every field but the host seconds,
+    with one `edge_aggregate` launch a round. Deterministic algorithms
+    are on for both runs, as in the smoke's FL phases."""
+    import dataclasses
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.core.multigraph import build_multigraph
+    from repro_torch.design import evaluate
+    from repro_torch.design.catalog import ring_topology
+    from repro_torch.networks.registry import get_network
+
+    gaia = get_network("gaia")
+    overlay = ring_topology(gaia, FEMNIST).graph
+    mg = build_multigraph(gaia, FEMNIST, overlay, t=3)
+    vec = tuple(int(mg.multiplicity[p]) for p in overlay.pairs)
+    kw = dict(rounds=6, samples_per_silo=32, batch_size=8, seed=3)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        before = ops.edge_aggregate.launches
+        got = evaluate.evaluate_frontier("gaia", "femnist", [("t3", vec)],
+                                         device=cuda, **kw)[0]
+        assert ops.edge_aggregate.launches == before + kw["rounds"]
+        one = evaluate.evaluate_design("gaia", "femnist", multiplicity=vec,
+                                       name="t3", device=cuda, **kw)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert dataclasses.replace(one, train_s=0.0) == \
+        dataclasses.replace(got, train_s=0.0)
+    assert np.isfinite(got.final_loss)

@@ -35,6 +35,8 @@ from repro.optim import flat_sgd as rflat_sgd  # noqa: E402
 
 from repro_torch import obs as pobs  # noqa: E402
 from repro_torch.core.delay import FEMNIST as PFEMNIST  # noqa: E402
+from repro_torch.faults import FaultedSession as PFaultedSession  # noqa: E402
+from repro_torch.faults import get_scenario as pget_scenario  # noqa: E402
 from repro_torch.fl import FLConfig as PConfig, run_fl as prun_fl  # noqa: E402
 from repro_torch.fl import dpasgd as pdpasgd, flat as pflat  # noqa: E402
 from repro_torch.fl import runtime as pruntime  # noqa: E402
@@ -108,15 +110,17 @@ def _decorate(rec):
 
 
 def test_faulted_spans_and_trace_json_match_reference():
-    """The port's recorder fed the reference's `FaultedSegment` (the
-    port has no fault engine yet), then the whole trace object."""
-    _, rt = _plans("multigraph", "gaia")
-    sess = FaultedSession(rt, get_scenario("outage").schedule,
-                          record_obs=True)
-    seg = sess.advance(32)
+    """The port's recorder fed the port's own `FaultedSession` segment
+    against the reference's recorder fed the reference's, then the
+    whole trace object."""
+    pt, rt = _plans("multigraph", "gaia")
+    pseg = PFaultedSession(pt, pget_scenario("outage").schedule,
+                           record_obs=True).advance(32)
+    rseg = FaultedSession(rt, get_scenario("outage").schedule,
+                          record_obs=True).advance(32)
     prec, rrec = pobs.TraceRecorder(), robs.TraceRecorder()
-    end = prec.add_faulted_spans(rt.pair_i, rt.pair_j, seg)
-    assert end == rrec.add_faulted_spans(rt.pair_i, rt.pair_j, seg)
+    end = prec.add_faulted_spans(pt.pair_i, pt.pair_j, pseg)
+    assert end == rrec.add_faulted_spans(rt.pair_i, rt.pair_j, rseg)
     assert prec.sim_events == rrec.sim_events
     assert any(e["name"] == "down" for e in prec.sim_events)
     for rec in (prec, rrec):
@@ -126,9 +130,9 @@ def test_faulted_spans_and_trace_json_match_reference():
     pobj = pobs.to_trace_json(prec, extra_meta={"run": 1})
     assert pobj == robs.to_trace_json(rrec, extra_meta={"run": 1})
     assert pobs.validate_trace(pobj) == []
-    plain = FaultedSession(rt, get_scenario("drift").schedule).advance(4)
+    plain = PFaultedSession(pt, pget_scenario("drift").schedule).advance(4)
     with pytest.raises(ValueError, match="record_obs"):
-        prec.add_faulted_spans(rt.pair_i, rt.pair_j, plain)
+        prec.add_faulted_spans(pt.pair_i, pt.pair_j, plain)
 
 
 def test_validate_trace_catches_malformed():

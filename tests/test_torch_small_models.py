@@ -185,3 +185,68 @@ def test_init_distribution(name):
         else:
             np.testing.assert_allclose(float(pv.mean()), float(rv.mean()),
                                        atol=0.25, err_msg=pn)
+
+
+
+def _tied_femnist_input():
+    """Four FEMNIST images with a flat 20 x 20 patch at 0.5: inside it
+    both pools see windows of exactly equal, non-zero maxima."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(4, 28, 28, 1)).astype(np.float32)
+    x[:, 4:24, 4:24, :] = 0.5
+    return x
+
+
+def _pool_grads(h_nhwc, cot_nhwc):
+    """The gradient of <pool(h), cot> through each package's pool."""
+    want = jax.grad(lambda v: jnp.sum(rsmall._maxpool2(v) * cot_nhwc))(
+        jnp.asarray(h_nhwc))
+    h = torch.from_numpy(h_nhwc).permute(0, 3, 1, 2).requires_grad_()
+    (psmall._maxpool2(h) * torch.from_numpy(cot_nhwc).permute(0, 3, 1, 2)
+     ).sum().backward()
+    return h.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want)
+
+
+def test_femnist_pool_ties_split_like_reference():
+    """The FEMNIST CNN's 2 x 2 max pool splits a window's gradient evenly
+    among equal maxima, as `repro.models.small._maxpool2` does under
+    `jax.grad` (`F.max_pool2d` sends it all to the first maximum).
+
+    Held on one window (3, 3, 0, 1), exactly; on the first conv's tied
+    activations of inputs with a flat patch, within 1e-7 of the largest
+    entry; and through `femnist_cnn_apply` on those inputs: the gradients
+    with respect to the input and to c1, c2 and fc1 within 5e-6 of their
+    largest entry. The last limit is fp32 rounding of two convolution
+    orders (im2col + matmul against `F.conv2d`): 1.4e-6 at most here,
+    while a first-maximum pool puts the input gradient 0.58 off."""
+    win = np.asarray([[3.0, 3.0], [0.0, 1.0]], np.float32)[None, :, :, None]
+    got, want = _pool_grads(win, np.ones((1, 1, 1, 1), np.float32))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[0, :, :, 0], [[0.5, 0.5], [0.0, 0.0]])
+
+    rparams = jax.device_get(rsmall.FEMNIST_CNN.init(jax.random.PRNGKey(3)))
+    xin = _tied_femnist_input()
+    rng = np.random.default_rng(12)
+    h1 = np.array(jax.nn.relu(rsmall._conv(jnp.asarray(xin),
+                                             rparams["c1"])))
+    cot1 = rng.normal(size=(4, 14, 14, 32)).astype(np.float32)
+    got, want = _pool_grads(h1, cot1)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-7 * np.abs(want).max())
+
+    cot = rng.normal(size=(4, 62)).astype(np.float32)
+    rgp, rgx = jax.grad(
+        lambda p, v: jnp.sum(rsmall.femnist_cnn_apply(p, v) * cot),
+        argnums=(0, 1))({k: jnp.asarray(v) for k, v in rparams.items()},
+                        jnp.asarray(xin))
+    pparams = {k: v.requires_grad_()
+               for k, v in psmall.params_from_reference(rparams).items()}
+    px = torch.from_numpy(xin).requires_grad_()
+    (psmall.femnist_cnn_apply(pparams, px)
+     * torch.from_numpy(cot)).sum().backward()
+    for name, got, want in [("x", px.grad, rgx)] + [
+            (k, pparams[k].grad, rgp[k]) for k in ("c1", "c2", "fc1")]:
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=5e-6 * np.abs(want).max(),
+                                   err_msg=name)
