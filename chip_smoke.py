@@ -165,7 +165,29 @@ Phases, each printing one JSON line:
    drift, diurnal, flash and churn (finite, at or above the nominal
    total). One drift trace by `python -m repro_torch.obs trace`, checked
    by `validate`. The tables' and scenarios' times and `tta_s` are
-   simulated seconds of the paper's network model, not the card's.
+   simulated seconds of the paper's network model, not the card's;
+21. design_search (last, deterministic algorithms on): the design search
+   and the fault controller. (a) The paper's whole grid (105 cells, 15
+   on the recurrence axis, 6,400 rounds) by `TimingGrid.reports` on the
+   device grid (`backend="torch"`) and on the host, equal report for
+   report, with each engine's seconds and the device grid's operations
+   a round (the profiler's count at two round counts); (b)
+   `CandidateScorer` over gaia / femnist's ring overlay at 6,400 rounds
+   on both backends for 16, 256 and 4,096 seeded random candidates, the
+   scores bit-equal, with candidates per second of each; (c)
+   `population_search(gaia, femnist)` on both backends at the search
+   CLI's --quick sizes (800 rounds, 6 iterations, pop 12, 4
+   generations), equal rows and pools, seconds of each; (d)
+   `ControllerHarness(ControllerConfig())` at its defaults (48 rounds,
+   re-planning every 12, batch 16, 64 samples a silo, the full CNN):
+   nominal and churn, static and adaptive, exactly 192 `edge_aggregate`
+   launches and one cycle function built; nominal static == adaptive
+   with no swap and == `evaluate_design`; churn's swaps and its
+   adaptive run's `tta_s` and total below the static run's; the
+   adaptive churn run again with the plain aggregation, bit-equal; host
+   ms a round of each run; one traced run checked by `validate_trace`;
+   (e) `python -m repro_torch.design.search --networks gaia --workloads
+   femnist --quick`, cycle and tta objectives, exit 0.
 
 `python3 chip_smoke.py --decode-bench DIR` instead times only the
 decode kernel of the port under DIR/src at the three decode shapes
@@ -1071,6 +1093,280 @@ def phase_design_loop(torch, ctx):
          attach_tta=tta, paper_grid=grid, scenarios=scen,
          scenario_rounds=len(nominal), trace=out,
          simulated_note="tables, tta_s and scenario totals are simulated "
+                        "seconds of the paper's network model, not times "
+                        "of the card")
+
+
+#: The design_search phase: the scorer's candidate counts (6,400 rounds
+#: each, gaia / femnist's ring overlay), the grid's rounds for the
+#: per-round device-op count, `population_search` at the search CLI's
+#: --quick sizes (at its defaults the device grid took 33 s on an H100,
+#: PERF.md), and the controller's default runs.
+SCORER_CANDIDATES = (16, 256, 4096)
+GRID_OP_ROUNDS = (16, 48)
+POPULATION_QUICK = dict(rounds=800, max_iters=6, pop_size=12, generations=4)
+CONTROLLER_RUNS = (("nominal", False), ("nominal", True), ("churn", False),
+                   ("churn", True))
+
+
+def _grid_engines(torch) -> dict:
+    """(a) The paper's whole grid (`run_sweep(SweepConfig())`'s 105 cells)
+    by `reports` on both engines: equal report for report; each engine's
+    seconds, the recurrence cells C, and the device grid's operations a
+    round (the profiler's count at GRID_OP_ROUNDS[1] rounds less that at
+    GRID_OP_ROUNDS[0], over the difference)."""
+    from repro_torch.core import sweep, timing, timing_torch
+
+    cfg = sweep.SweepConfig()
+    plans, _ = sweep.build_sweep_plans(cfg)
+    grid = timing.build_timing_grid(plans)
+    t0 = time.perf_counter()
+    host = grid.reports(cfg.num_rounds)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = grid.reports(cfg.num_rounds, backend="torch")
+    dev_s = time.perf_counter() - t0
+    if len(dev) != 105 or dev != host:
+        raise AssertionError("torch grid reports != numpy reports")
+    counts = {}
+    for r in GRID_OP_ROUNDS:
+        seen, names, blind = device_ops_per_call(
+            torch, lambda r=r: timing_torch.grid_recurrence_taus(
+                grid.d0, grid.pair_comp, grid.strong, grid.trans,
+                grid.lone_comp, grid.num_states, r), iters=2)
+        counts[r] = dict(ops_per_call=seen, blind=blind,
+                         names=sorted(n[:60] for n in names))
+    lo, hi = GRID_OP_ROUNDS
+    per_round = [(b - a) / (hi - lo) for a, b in
+                 zip(counts[lo]["ops_per_call"], counts[hi]["ops_per_call"])]
+    return dict(cells=len(plans), recurrence_cells=len(grid.rec_rows),
+                rounds=cfg.num_rounds, numpy_s=host_s, torch_s=dev_s,
+                reports_equal=True, device_ops_per_round=per_round,
+                device_ops=counts)
+
+
+def _scorer_rates() -> dict:
+    """(b) `CandidateScorer` on gaia / femnist's ring overlay at 6,400
+    rounds: one seeded random candidate set (multiplicities 1..5) per
+    count in SCORER_CANDIDATES, scored on both backends, bit-equal;
+    candidates per second of each."""
+    import numpy as np
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.design import batched
+    from repro_torch.design.catalog import ring_topology
+    from repro_torch.networks.registry import get_network
+
+    gaia = get_network("gaia")
+    overlay = ring_topology(gaia, FEMNIST).graph
+    rng = np.random.default_rng(22)
+    out = {}
+    for count in SCORER_CANDIDATES:
+        cands = [tuple(int(x) for x in rng.integers(1, 6, len(overlay.pairs)))
+                 for _ in range(count)]
+        row = {}
+        scores = {}
+        for backend in ("torch", "numpy"):
+            scorer = batched.CandidateScorer(gaia, FEMNIST, overlay,
+                                             rounds=6400, backend=backend)
+            t0 = time.perf_counter()
+            scores[backend] = scorer.score(cands)
+            sec = time.perf_counter() - t0
+            row[backend] = dict(seconds=sec, candidates_per_s=count / sec)
+        if not np.array_equal(scores["torch"], scores["numpy"]):
+            raise AssertionError(f"scorer: torch != numpy at C={count}")
+        row["torch_over_numpy"] = (row["torch"]["candidates_per_s"]
+                                   / row["numpy"]["candidates_per_s"])
+        out[str(count)] = row
+    return dict(rounds=6400, candidates=out, scores_equal=True)
+
+
+def _population() -> dict:
+    """(c) `population_search(gaia, femnist)` at POPULATION_QUICK on the
+    card ("torch") and on the host ("numpy"): equal rows but for
+    `elapsed_s` and `backend`, equal pools; seconds of each."""
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.design import search
+    from repro_torch.networks.registry import get_network
+
+    gaia = get_network("gaia")
+    res = {}
+    for backend in ("torch", "numpy"):
+        t0 = time.perf_counter()
+        r, pool = search.population_search(gaia, FEMNIST, backend=backend,
+                                           **POPULATION_QUICK)
+        res[backend] = (r, pool, time.perf_counter() - t0)
+    rows = [{k: v for k, v in r.row().items()
+             if k not in ("elapsed_s", "backend")} for r, _, _ in
+            res.values()]
+    if rows[0] != rows[1] or res["torch"][1] != res["numpy"][1]:
+        raise AssertionError("population_search: torch != numpy")
+    best = res["torch"][0]
+    return dict(**POPULATION_QUICK, best_mults=best.best_mults,
+                best_mean_ms=best.best_mean_ms,
+                paper_mults=best.paper_mults,
+                paper_mean_ms=best.paper_mean_ms,
+                improvement_pct=best.improvement_pct,
+                evaluations=best.evaluations, pool=len(res["torch"][1]),
+                torch_s=res["torch"][2], numpy_s=res["numpy"][2],
+                rows_equal=True, pools_equal=True)
+
+
+def _controller(torch) -> dict:
+    """(d) `ControllerHarness(ControllerConfig())` at its defaults on the
+    card: the four CONTROLLER_RUNS with the launch count zeroed just
+    before and read just after (4 x 48 = 192) and `make_cycle_fn`'s
+    builds counted (one); nominal static == adaptive bit for bit with no
+    swap, and the static run == `evaluate_design` at the same sizes;
+    churn's adaptive run below the static one in `tta_s` (to the worse
+    of the two smoothed minima) and `total_time_s`; the adaptive churn
+    run again through a cycle function with the plain aggregation over
+    the harness's own runtime, bit-equal; host ms a round of each run;
+    one traced churn run, checked by `validate_trace`."""
+    import numpy as np
+    from repro_torch.design import evaluate
+    from repro_torch.design.controller import (ControllerConfig,
+                                               ControllerHarness)
+    from repro_torch.fl import runtime as flrt
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.obs import TraceRecorder, to_trace_json, validate_trace
+
+    cfg = ControllerConfig()
+    make, built = flrt.make_cycle_fn, []
+
+    def counting(*a, **k):
+        built.append(1)
+        return make(*a, **k)
+
+    flrt.make_cycle_fn = counting
+    try:
+        t0 = time.perf_counter()
+        h = ControllerHarness(cfg)
+        build_s = time.perf_counter() - t0
+        ops.edge_aggregate.launches = 0
+        torch.cuda.synchronize()
+        runs, host = {}, {}
+        for sc, ad in CONTROLLER_RUNS:
+            t0 = time.perf_counter()
+            runs[sc, ad] = h.run(sc, adaptive=ad)
+            torch.cuda.synchronize()
+            host[f"{sc}_{'adaptive' if ad else 'static'}"] = (
+                (time.perf_counter() - t0) * 1e3 / cfg.rounds)
+        launches = ops.edge_aggregate.launches
+    finally:
+        flrt.make_cycle_fn = make
+    if launches != len(CONTROLLER_RUNS) * cfg.rounds or len(built) != 1:
+        raise AssertionError(f"controller: {launches} launches, "
+                             f"{len(built)} cycle functions built")
+    for run in runs.values():
+        if not np.isfinite(run.losses).all():
+            raise AssertionError(f"controller {run.scenario}: non-finite")
+    st, ad = runs["nominal", False], runs["nominal", True]
+    if not (np.array_equal(st.losses, ad.losses)
+            and np.array_equal(st.cycle_times_ms, ad.cycle_times_ms)
+            and st.final_acc == ad.final_acc and ad.swap_rounds == ()):
+        raise AssertionError("controller: nominal static != adaptive")
+    one = evaluate.evaluate_design("gaia", "femnist", t=cfg.t,
+                                   rounds=cfg.rounds,
+                                   batch_size=cfg.batch_size,
+                                   samples_per_silo=cfg.samples_per_silo)
+    k, tta = evaluate.time_to_target(st.losses, st.cycle_times_ms,
+                                     one.target_loss)
+    if (float(evaluate.smoothed_losses(st.losses)[-1]) != one.final_loss
+            or st.final_acc != one.final_acc
+            or st.total_time_s != one.total_time_s
+            or (k, tta) != (one.reached_round, one.tta_s)):
+        raise AssertionError(f"controller nominal static != evaluate_design: "
+                             f"{one}")
+    cst, cad = runs["churn", False], runs["churn", True]
+    target = float(max(evaluate.smoothed_losses(cst.losses).min(),
+                       evaluate.smoothed_losses(cad.losses).min())
+                   * (1 + 1e-9))
+    churn = dict(target_loss=target, static_tta_s=cst.tta_s(target),
+                 adaptive_tta_s=cad.tta_s(target),
+                 static_total_s=cst.total_time_s,
+                 adaptive_total_s=cad.total_time_s,
+                 swap_rounds=cad.swap_rounds, vectors=cad.vectors,
+                 static_swap_rounds=cst.swap_rounds,
+                 demoted_rounds=[cst.demoted_rounds, cad.demoted_rounds],
+                 final_acc=[cst.final_acc, cad.final_acc])
+    if not (churn["adaptive_tta_s"] < churn["static_tta_s"]
+            and cad.total_time_s < cst.total_time_s):
+        raise AssertionError(f"controller churn: no win: {churn}")
+    kernel_cycle = h._cycle_fn
+    h._cycle_fn = flrt.make_cycle_fn(h.rt0, loss_fn=h._spec.loss,
+                                     opt=h._opt, aggregator="reference")
+    try:
+        plain = h.run("churn", adaptive=True)
+    finally:
+        h._cycle_fn = kernel_cycle
+    if not (np.array_equal(plain.losses, cad.losses)
+            and plain.final_acc == cad.final_acc
+            and plain.vectors == cad.vectors):
+        raise AssertionError("controller: the plain aggregation diverged "
+                             "from the kernel's")
+    rec = TraceRecorder()
+    traced = h.run("churn", adaptive=True, recorder=rec)
+    errors = validate_trace(to_trace_json(rec))
+    if errors or not np.array_equal(traced.losses, cad.losses):
+        raise AssertionError(f"controller trace: {errors[:5]}")
+    return dict(rounds=cfg.rounds, replan_every=cfg.replan_every,
+                batch_size=cfg.batch_size,
+                samples_per_silo=cfg.samples_per_silo, launches=launches,
+                cycle_functions_built=len(built), harness_build_s=build_s,
+                host_ms_per_round=host, vec0=h.vec0,
+                nominal=dict(final_loss=one.final_loss,
+                             final_acc=st.final_acc,
+                             total_time_s=st.total_time_s,
+                             evaluate_design_equal=True),
+                churn=churn, reference_aggregator_equal=True,
+                trace=dict(events=len(rec.sim_events) + len(rec.ctrl_events)
+                           + len(rec.host_events), valid=True))
+
+
+def _search_cli() -> dict:
+    """(e) `python -m repro_torch.design.search --networks gaia
+    --workloads femnist --quick`, cycle and tta objectives: exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = {}
+    for extra in ([], ["--objective", "tta"]):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.design.search", "--networks",
+             "gaia", "--workloads", "femnist", "--quick", *extra], env=env,
+            capture_output=True, text=True, timeout=300)
+        name = extra[-1] if extra else "cycle"
+        if run.returncode:
+            raise AssertionError(f"search --quick {name}: rc "
+                                 f"{run.returncode}: {run.stderr[-2000:]}")
+        out[name] = dict(seconds=time.perf_counter() - t0,
+                         stdout=run.stdout.strip().splitlines())
+    return out
+
+
+def phase_design_search(torch, ctx):
+    """The design search and the fault controller on the card: (a) the
+    paper grid on both grid engines (`_grid_engines`), (b) the scorer's
+    candidate rates (`_scorer_rates`), (c) `population_search`
+    (`_population`), (d) the controller at its defaults (`_controller`)
+    and (e) the search CLI (`_search_cli`). Simulated seconds (cycle
+    times, `tta_s`, totals) are the paper's network model's, not the
+    card's."""
+    _deterministic(torch)
+    t_phase = time.perf_counter()
+    parts = {}
+    for name, fn in (("grid", lambda: _grid_engines(torch)),
+                     ("scorer", _scorer_rates), ("population", _population),
+                     ("controller", lambda: _controller(torch)),
+                     ("cli", _search_cli)):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        parts[name]["part_s"] = time.perf_counter() - t0
+    ctx["launches"]["edge_aggregate_controller"] = \
+        parts["controller"]["launches"]
+    emit(phase="design_search", ok=True, nvidia_smi=ctx["smi"],
+         seconds=time.perf_counter() - t_phase, **parts,
+         simulated_note="cycle times, tta_s and totals are simulated "
                         "seconds of the paper's network model, not times "
                         "of the card")
 
@@ -2733,7 +3029,7 @@ def main() -> int:
               phase_ssm_prefill, phase_ssm_decode, phase_hybrid_prefill,
               phase_hybrid_decode, phase_gossip_combine, phase_ring_gossip,
               phase_run_fl_surface, phase_run_fl_models, phase_topologies,
-              phase_design_loop]
+              phase_design_loop, phase_design_search]
     for phase in phases:
         try:
             phase(torch, ctx)
@@ -2757,6 +3053,10 @@ def main() -> int:
              path="design_loop: evaluate_frontier, 3 candidates x "
                   f"{DESIGN_ROUNDS} rounds at the main shape",
              launches=ctx["launches"]["edge_aggregate_design_loop"]),
+        dict(_kernel_row(ctx, "edge_aggregate",
+                         "src/repro/kernels/gossip_combine/kernel.py:114"),
+             path="controller: 4 runs x 48 rounds at the main shape",
+             launches=ctx["launches"]["edge_aggregate_controller"]),
         _kernel_row(ctx, "gossip_combine",
                     "src/repro/kernels/gossip_combine/kernel.py:46"),
         _kernel_row(ctx, "flash_attention",

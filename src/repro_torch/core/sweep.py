@@ -10,9 +10,11 @@ Table 3 (states / isolated-node statistics) as ONE command:
         --topologies ring,multigraph --json sweep.json
 
 The tables' times are simulated seconds of the paper's network model
-(Eq. 3/4/5), computed on the host; they are numbers of the model, not
-of any device. Only ``--tta`` trains, and that runs on the card unless
-``attach_tta`` is given another device.
+(Eq. 3/4/5); they are numbers of the model, not of any device. The grid
+runs on the host (``--backend numpy``, the default) or on the card
+(``--backend torch``), with the same bits; ``--check`` holds the device
+grid against the host one. ``--tta`` trains on the card. ``--device``
+names another device for both (``--device cpu``).
 
 Every cell is a `timing.TimingPlan` (`core/timing.py`) — the same
 object the simulator and the FL trainer consume — so the tables are
@@ -65,7 +67,10 @@ class SweepConfig:
     seed: int = 0
     scenario: str = "nominal"   # named FaultSchedule (faults)
     backend: str = "numpy"      # recurrence grid engine: "numpy" (host,
-    #                             orbit short-circuit), the one ported
+    #                             orbit short-circuit — right for few
+    #                             long-horizon cells) or "torch" (device
+    #                             grid, core/timing_torch.py); bit-exact
+    #                             either way, asserted by --check
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,7 +166,7 @@ def build_sweep_plans(cfg: SweepConfig, shared: bool = True
 
 
 def run_sweep(cfg: SweepConfig, batched: bool = True,
-              shared: bool = True) -> list[SweepCell]:
+              shared: bool = True, *, device=None) -> list[SweepCell]:
     """Evaluate the whole grid; one TimingPlan per cell.
 
     ``batched=True`` (default) evaluates every recurrence cell in one
@@ -169,6 +174,8 @@ def run_sweep(cfg: SweepConfig, batched: bool = True,
     per-cell path — the equivalence oracle the batched mode is tested
     against (bit-for-bit, `--check`).
     ``shared`` selects the construction path (see `build_sweep_plans`).
+    ``device`` is where the ``"torch"`` grid runs (the card unless told
+    otherwise); the host engine ignores it.
     """
     plans, meta = build_sweep_plans(cfg, shared=shared)
     eval_ms = [0.0] * len(plans)
@@ -182,7 +189,8 @@ def run_sweep(cfg: SweepConfig, batched: bool = True,
     if batched:
         grid = timing.build_timing_grid(plans)
         t0 = time.perf_counter()
-        reports = grid.reports(cfg.num_rounds, backend=cfg.backend)
+        reports = grid.reports(cfg.num_rounds, backend=cfg.backend,
+                               device=device)
         grid_ms = (time.perf_counter() - t0) * 1e3
         # The recurrence cells advance as ONE array program; their
         # shared wall-clock is attributed equally across them.
@@ -377,7 +385,7 @@ def format_scenario(cells: list[SweepCell]) -> str:
     return "\n".join(lines)
 
 
-def consistency_check(cfg: SweepConfig) -> None:
+def consistency_check(cfg: SweepConfig, *, device=None) -> None:
     """Assert the batched paths == the per-cell oracles, bit-for-bit,
     full `CycleTimeReport` equality (mean/total/state statistics):
 
@@ -385,6 +393,9 @@ def consistency_check(cfg: SweepConfig) -> None:
       MATCHA sampler) == legacy per-cell construction;
     * batched `TimingGrid` evaluation — with AND without per-cell
       retirement — == per-cell evaluation;
+    * the DEVICE grid engine (``backend="torch"``, `core/timing_torch.py`,
+      on ``device``: the card unless told otherwise) == the host grid ==
+      per-cell;
     * MATCHA trainer total == report total past the old 512-round
       tiled period;
     * the nominal fault scenario is the identity: every cell's
@@ -392,16 +403,15 @@ def consistency_check(cfg: SweepConfig) -> None:
       ``plan.cycle_times(R)`` bit-for-bit (the `--scenario` flag's
       default cannot perturb today's output).
 
-    The reference's device-grid leg (``backend="jax"``) has no
-    counterpart here: the device grid is not ported. The printed line
-    names the legs that ran. Raises on any mismatch."""
+    The printed line names the legs that ran. Raises on any mismatch."""
     plans, _ = build_sweep_plans(cfg, shared=True)
     legacy, _ = build_sweep_plans(cfg, shared=False)
     grid = timing.build_timing_grid(plans)
     batched = grid.reports(cfg.num_rounds)
     no_retire = grid.reports(cfg.num_rounds, retire=False)
+    on_device = grid.reports(cfg.num_rounds, backend="torch", device=device)
     oracle = [p.report(cfg.num_rounds) for p in legacy]
-    for b, nr, o in zip(batched, no_retire, oracle):
+    for b, nr, dv, o in zip(batched, no_retire, on_device, oracle):
         if b != o:
             raise AssertionError(
                 f"shared/batched != per-cell on {o.topology}/{o.network}/"
@@ -410,8 +420,12 @@ def consistency_check(cfg: SweepConfig) -> None:
             raise AssertionError(
                 f"non-retiring grid != per-cell on {o.topology}/"
                 f"{o.network}/{o.workload}: {nr} vs {o}")
+        if dv != o:
+            raise AssertionError(
+                f"torch grid != per-cell on {o.topology}/"
+                f"{o.network}/{o.workload}: {dv} vs {o}")
     legs = ["shared construction", "batched grid", "retirement on+off",
-            "numpy==per-cell reports"]
+            "torch==numpy==per-cell reports"]
     if any(t.startswith("matcha") for t in cfg.topologies):
         from repro_torch.core.simulator import simulate
         from repro_torch.fl import dpasgd
@@ -440,7 +454,7 @@ def consistency_check(cfg: SweepConfig) -> None:
                 f"{p.network}/{p.workload}")
     legs.append("nominal fault scenario identity")
     print(f"consistency_check OK: {len(batched)} cells bit-exact; legs: "
-          f"{', '.join(legs)} (device grid not ported)")
+          f"{', '.join(legs)}")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -454,10 +468,15 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--t", default="5",
                     help="comma-separated multigraph t values")
     ap.add_argument("--rounds", type=int, default=6400)
-    ap.add_argument("--backend", choices=("numpy",), default="numpy",
+    ap.add_argument("--backend", choices=("numpy", "torch"),
+                    default="numpy",
                     help="recurrence grid engine for the batched "
-                         "evaluation (the host engine; the device grid "
-                         "is not ported)")
+                         "evaluation; outputs are bit-identical "
+                         "(asserted by --check)")
+    ap.add_argument("--device", default=None,
+                    help="torch device of the device grid (--check, "
+                         "--backend torch) and of --tta's training; the "
+                         "card unless given")
     ap.add_argument("--quick", action="store_true",
                     help="small subset (gaia+geant, femnist)")
     ap.add_argument("--check", action="store_true",
@@ -492,13 +511,14 @@ def main(argv: list[str] | None = None) -> None:
             cfg, networks=("gaia", "geant"), workloads=("femnist",))
 
     if args.check:
-        consistency_check(cfg)
+        consistency_check(cfg, device=args.device)
         return
 
     t0 = time.perf_counter()
-    cells = run_sweep(cfg)
+    cells = run_sweep(cfg, device=args.device)
     if args.tta:
-        cells = attach_tta(cells, rounds=args.tta_rounds, seed=cfg.seed)
+        cells = attach_tta(cells, rounds=args.tta_rounds, seed=cfg.seed,
+                           device=args.device)
     if cfg.scenario != "nominal":
         cells = attach_scenario(cells, cfg)
     wall = time.perf_counter() - t0

@@ -454,9 +454,17 @@ def multiplicity_timing_plan(net: NetworkSpec, wl: Workload,
                              multiplicity: dict, *,
                              name: str = "multigraph",
                              cap_states: int | None = CAP_STATES,
-                             mg: Multigraph | None = None) -> TimingPlan:
+                             mg: Multigraph | None = None,
+                             d0_override: np.ndarray | None = None,
+                             comp_override: np.ndarray | None = None
+                             ) -> TimingPlan:
     """Recurrence plan for an explicit multiplicity assignment over the
-    overlay pairs (Algorithm 1 is one way to pick it)."""
+    overlay pairs (Algorithm 1 is one way to pick it).
+
+    ``d0_override``/``comp_override`` replace the NOMINAL Eq. 3 pair
+    delays / per-silo compute with OBSERVED estimates (`faults`: scenario
+    planning and the self-healing controller re-plan from the measured
+    window). ``None`` keeps the nominal path bit for bit."""
     from repro_torch.core import parsing
 
     if mg is None:
@@ -466,8 +474,15 @@ def multiplicity_timing_plan(net: NetworkSpec, wl: Workload,
     num_pairs = len(pairs)
     pair_i = np.fromiter((p[0] for p in pairs), np.int64, num_pairs)
     pair_j = np.fromiter((p[1] for p in pairs), np.int64, num_pairs)
-    comp = wl.compute_ms(net).astype(np.float64)
-    d0 = pair_delay_vector(net, wl, pair_i, pair_j, overlay.degrees())
+    comp = (wl.compute_ms(net).astype(np.float64) if comp_override is None
+            else np.asarray(comp_override, np.float64))
+    if comp.shape != (net.num_silos,):
+        raise ValueError(f"comp_override shape {comp.shape} != "
+                         f"({net.num_silos},)")
+    d0 = (pair_delay_vector(net, wl, pair_i, pair_j, overlay.degrees())
+          if d0_override is None else np.asarray(d0_override, np.float64))
+    if d0.shape != (num_pairs,):
+        raise ValueError(f"d0_override shape {d0.shape} != ({num_pairs},)")
     pair_comp = np.maximum(comp[pair_i], comp[pair_j])
 
     # Algorithm 2 in closed form: pair p is STRONG in state m iff
@@ -502,10 +517,14 @@ def multiplicity_timing_plan(net: NetworkSpec, wl: Workload,
 
 def multiplicity_vector_plan(net: NetworkSpec, wl: Workload,
                              overlay: SimpleGraph, mults, *,
-                             name: str) -> TimingPlan:
+                             name: str = "search",
+                             cap_states: int | None = CAP_STATES,
+                             d0_override: np.ndarray | None = None,
+                             comp_override: np.ndarray | None = None
+                             ) -> TimingPlan:
     """`multiplicity_timing_plan` for a flat vector aligned with
-    ``overlay.pairs``. Algorithm 1's own vector gives the default plan
-    bit for bit."""
+    ``overlay.pairs``, the design search's exchange format. Algorithm
+    1's own vector gives the default plan bit for bit."""
     mults = tuple(int(m) for m in mults)
     if len(mults) != len(overlay.pairs):
         raise ValueError(f"multiplicity vector has {len(mults)} entries "
@@ -513,7 +532,10 @@ def multiplicity_vector_plan(net: NetworkSpec, wl: Workload,
     if any(m < 1 for m in mults):
         raise ValueError(f"multiplicities must be >= 1, got {mults}")
     L = {p: m for p, m in zip(overlay.pairs, mults)}
-    return multiplicity_timing_plan(net, wl, overlay, L, name=name)
+    return multiplicity_timing_plan(net, wl, overlay, L, name=name,
+                                    cap_states=cap_states,
+                                    d0_override=d0_override,
+                                    comp_override=comp_override)
 
 
 def multigraph_timing_plan(net: NetworkSpec, wl: Workload, *, t: int = 5,
@@ -736,24 +758,37 @@ class TimingGrid:
     def num_cells(self) -> int:
         return len(self.plans)
 
-    def _rec_taus(self, num_rounds: int, retire: bool,
-                  backend: str) -> np.ndarray:
-        """(len(rec_rows), num_rounds) recurrence taus on the host. The
-        device grid is not ported: any ``backend`` but "numpy" raises."""
-        if backend != "numpy":
+    def _rec_taus(self, num_rounds: int, retire: bool, backend: str,
+                  device=None) -> np.ndarray:
+        """(len(rec_rows), num_rounds) recurrence taus on ``backend``.
+
+        ``"numpy"`` is the host engine with exact-verified orbit
+        short-circuits (the oracle); ``"torch"`` runs the device grid
+        (`core/timing_torch.py`, on ``device``: the card unless told
+        otherwise), bit for bit the same, stepping the full horizon
+        (``retire`` is moot there: a locked cell's further stepping is
+        its tiled replay). Any other ``backend`` raises.
+        """
+        if backend not in ("numpy", "torch"):
             raise ValueError(f"unknown timing backend {backend!r} "
-                             "(this package has 'numpy' only)")
+                             "(expected 'numpy' or 'torch')")
         if not self.rec_rows:
             return np.empty((0, num_rounds), np.float64)
+        if backend == "torch":
+            from repro_torch.core import timing_torch
+            return timing_torch.grid_recurrence_taus(
+                self.d0, self.pair_comp, self.strong, self.trans,
+                self.lone_comp, self.num_states, num_rounds, device=device)
         return _grid_recurrence_taus(
             self.d0, self.pair_comp, self.strong, self.trans,
             self.lone_comp, self.num_states, num_rounds, retire=retire)
 
     def cycle_time_matrix(self, num_rounds: int, retire: bool = True,
-                          backend: str = "numpy") -> np.ndarray:
+                          backend: str = "numpy",
+                          device=None) -> np.ndarray:
         """(num_cells, num_rounds) f64 ms: every cell's tau series."""
         out = np.empty((len(self.plans), num_rounds), np.float64)
-        rec = self._rec_taus(num_rounds, retire, backend)
+        rec = self._rec_taus(num_rounds, retire, backend, device)
         for row, c in enumerate(self.rec_rows):
             out[c] = rec[row]
         for c, plan in enumerate(self.plans):
@@ -762,9 +797,10 @@ class TimingGrid:
         return out
 
     def reports(self, num_rounds: int, retire: bool = True,
-                backend: str = "numpy") -> list[CycleTimeReport]:
+                backend: str = "numpy",
+                device=None) -> list[CycleTimeReport]:
         """One CycleTimeReport per plan, recurrence rows batched."""
-        rec_taus = self._rec_taus(num_rounds, retire, backend)
+        rec_taus = self._rec_taus(num_rounds, retire, backend, device)
         row_of = {c: row for row, c in enumerate(self.rec_rows)}
         out = []
         for c, plan in enumerate(self.plans):

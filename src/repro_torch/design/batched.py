@@ -1,5 +1,5 @@
-"""Batched topology construction (counterpart of `repro.design.batched`
-on its numpy backend, DESIGN.md §12).
+"""Batched topology construction (counterpart of `repro.design.batched`,
+DESIGN.md §12; its ``"jax"`` scorer is the ``"torch"`` one here).
 
 A sweep grid shares its construction artifacts instead of rebuilding
 them per cell: the nominal delay matrix per (network, workload), the
@@ -41,11 +41,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from repro_torch.core import timing
+from repro_torch.core import timing, timing_torch
 from repro_torch.core.delay import Workload
 from repro_torch.core.graph import Pair, SimpleGraph, canon
 from repro_torch.design import blossom, catalog
+from repro_torch.device import resolve_device
 from repro_torch.networks.zoo import NetworkSpec
 
 __all__ = [
@@ -451,9 +453,13 @@ class CandidateScorer:
     pair delays ``d0``, per-pair compute, with optional observed-delay
     overrides) are computed once; each `score` call stacks its
     candidate set with `stack_multiplicity_candidates` and evaluates
-    all of them in ONE `timing._grid_recurrence_taus` program. Only the
-    host backend, ``"numpy"``, is ported; the device scorer is not, and
-    any other ``backend`` raises.
+    all of them in ONE grid program. ``backend="torch"`` uploads the
+    shared ``(E,)`` rows to ``device`` (the card unless told otherwise)
+    once per scorer and runs the `core/timing_torch.py` grid;
+    ``backend="numpy"`` feeds the same stacked arrays to
+    `timing._grid_recurrence_taus`, the bit-exact oracle. Any other
+    ``backend`` raises. Scores are bit for bit `search.score_candidates`
+    on either backend.
     """
 
     def __init__(self, net: NetworkSpec, wl: Workload,
@@ -461,10 +467,10 @@ class CandidateScorer:
                  cap_states: int | None = timing.CAP_STATES,
                  d0_override: np.ndarray | None = None,
                  comp_override: np.ndarray | None = None,
-                 backend: str = "numpy"):
-        if backend != "numpy":
-            raise ValueError(f"unknown scorer backend {backend!r} (this "
-                             "package has 'numpy' only)")
+                 backend: str = "torch", device=None):
+        if backend not in ("torch", "numpy"):
+            raise ValueError(f"unknown scorer backend {backend!r} "
+                             "(expected 'torch' or 'numpy')")
         pairs = overlay.pairs
         num_pairs = len(pairs)
         if not num_pairs:
@@ -490,6 +496,11 @@ class CandidateScorer:
         self.comp = comp
         self.d0 = d0
         self.pair_comp = np.maximum(comp[pi], comp[pj])
+        if backend == "torch":
+            dev = resolve_device(device)
+            self._dev = tuple(torch.as_tensor(x, dtype=torch.float64,
+                                              device=dev)
+                              for x in (d0, self.pair_comp))
 
     def score(self, cands) -> np.ndarray:
         """(len(cands),) f64 mean cycle time (ms) over the horizon."""
@@ -498,13 +509,20 @@ class CandidateScorer:
             return np.zeros(0, np.float64)
         batch = stack_multiplicity_candidates(
             self.overlay, self.comp, cands, cap_states=self.cap_states)
-        num_pairs = len(self.d0)
-        taus = timing._grid_recurrence_taus(
-            np.broadcast_to(self.d0, (len(cands), num_pairs)),
-            np.broadcast_to(self.pair_comp, (len(cands), num_pairs)),
-            batch.strong, batch.trans, batch.lone_comp,
-            batch.num_states, self.rounds)
-        # Per-row float(mean): the reduction `CycleTimeReport` applies.
+        if self.backend == "torch":
+            d0, pair_comp = self._dev
+            taus = timing_torch.grid_recurrence_taus(
+                d0, pair_comp, batch.strong, batch.trans, batch.lone_comp,
+                batch.num_states, self.rounds, device=d0.device)
+        else:
+            num_pairs = len(self.d0)
+            taus = timing._grid_recurrence_taus(
+                np.broadcast_to(self.d0, (len(cands), num_pairs)),
+                np.broadcast_to(self.pair_comp, (len(cands), num_pairs)),
+                batch.strong, batch.trans, batch.lone_comp,
+                batch.num_states, self.rounds)
+        # Per-row float(mean) on the host: the reduction `CycleTimeReport`
+        # applies (a device mean sums in another order).
         return np.array([float(t.mean()) for t in taus])
 
 

@@ -64,6 +64,17 @@ class FlatRuntime:
     def num_rounds_cycle(self) -> int:
         return self.strong.shape[0]
 
+    def expand_pair_mask(self, pair_mask: np.ndarray) -> np.ndarray:
+        """Per-PAIR (R, E) rounds mask -> this runtime's dst-sorted
+        (R, 2E) directed layout (pair e owns directed edges 2e, 2e+1).
+        This is how the fault layer feeds degraded strong sets to the
+        cycle function: same CSR structure, another argument. A silo
+        whose edges all go weak reads stale buffers, and an all-crashed
+        destination row aggregates over an empty CSR row, which
+        `edge_aggregate` handles by construction."""
+        from repro_torch.faults.degrade import pair_rounds_to_directed
+        return pair_rounds_to_directed(self.order, pair_mask)
+
 
 def make_flat_runtime(plan: RoundPlan, template_params: flatmod.Params,
                       num_silos: int) -> FlatRuntime:

@@ -1,9 +1,10 @@
-"""The port's batched construction (`repro_torch.design.batched`, numpy
-backend) against `repro.design.batched`: the batched graph algorithms
-(the reference calls networkx, the port follows its order), the
-factorized MATCHA sampler, the per-network `DesignContext`, the sweep's
-`SweepConstructor`, candidate stacking and the `CandidateScorer`. All
-numpy on both sides: every comparison is exact.
+"""The port's batched construction (`repro_torch.design.batched`)
+against `repro.design.batched`: the batched graph algorithms (the
+reference calls networkx, the port follows its order), the factorized
+MATCHA sampler, the per-network `DesignContext`, the sweep's
+`SweepConstructor`, candidate stacking and the `CandidateScorer` (its
+torch backend on the CPU and its numpy backend, against the
+reference's numpy backend). Every comparison is exact.
 """
 
 import numpy as np
@@ -205,19 +206,22 @@ def test_stack_and_score_equal(net):
     co = comp * rng.uniform(1.0, 2.0, p.num_silos)
     for kw in (dict(), dict(d0_override=d0, comp_override=co),
                dict(cap_states=12)):
-        got = pbatched.CandidateScorer(p, pw, overlay, rounds=700,
-                                       **kw).score(cands)
         want = rbatched.CandidateScorer(r, rw, overlay, rounds=700,
                                         backend="numpy", **kw).score(cands)
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
-    got = pbatched.CandidateScorer(p, pw, overlay, rounds=700).score(cands)
+        for backend in ("torch", "numpy"):
+            got = pbatched.CandidateScorer(p, pw, overlay, rounds=700,
+                                           backend=backend, device="cpu",
+                                           **kw).score(cands)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    got = pbatched.CandidateScorer(p, pw, overlay, rounds=700,
+                                   device="cpu").score(cands)
     for vec, score in zip(cands[:4], got):
         plan = ptiming.multiplicity_vector_plan(p, pw, overlay, vec,
                                                 name="search")
         assert score == float(plan.cycle_times(700).mean())
     assert pbatched.CandidateScorer(
-        p, pw, overlay, rounds=10).score([]).shape == (0,)
+        p, pw, overlay, rounds=10, device="cpu").score([]).shape == (0,)
 
 
 def test_scorer_refusals():
@@ -233,7 +237,8 @@ def test_scorer_refusals():
             overlay, pw.compute_ms(p), [(0,) * len(overlay.pairs)])
     mg = build_multigraph(p, pw, overlay, t=5)
     vec = tuple(mg.multiplicity[q] for q in overlay.pairs)
-    assert pbatched.CandidateScorer(p, pw, overlay, rounds=300).score(
+    assert pbatched.CandidateScorer(p, pw, overlay, rounds=300,
+                                    device="cpu").score(
         [vec])[0] == ptiming.multigraph_timing_plan(
             p, pw, t=5).report(300).mean_cycle_ms
     assert rtiming.CAP_STATES == ptiming.CAP_STATES

@@ -103,17 +103,17 @@ def test_scenario_cycle_times_equal(name):
 
 
 def test_consistency_check_passes(capsys):
-    psweep.consistency_check(psweep.SweepConfig(**QUICK))
+    psweep.consistency_check(psweep.SweepConfig(**QUICK), device="cpu")
     out = capsys.readouterr().out
     assert "consistency_check OK: 16 cells bit-exact" in out
     assert "matcha trainer==report@700r" in out
-    assert "device grid not ported" in out
+    assert "torch==numpy==per-cell reports" in out
     with pytest.raises(ValueError, match="backend"):
         psweep.run_sweep(psweep.SweepConfig(**QUICK, backend="jax"))
 
 
 def test_cli(tmp_path, capsys):
-    psweep.main(["--quick", "--check"])
+    psweep.main(["--quick", "--check", "--device", "cpu"])
     assert "consistency_check OK: 14 cells" in capsys.readouterr().out
     out = tmp_path / "cells.json"
     psweep.main(["--quick", "--rounds", "300", "--scenario", "drift",
