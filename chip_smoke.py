@@ -102,13 +102,40 @@ Phases, each printing one JSON line:
    decode_step(impl="reference") run fed the same tokens, and
    `decode_attention` on the run's own shared-block caches (8, 2048, 32,
    64) against its plain version, timed over the 6 of them;
-15. gossip_combine: the kernel against its plain version, bit for bit
+15. serving: the slot engine (`repro_torch.serving.ServingEngine`),
+   its decode step captured as one CUDA graph. (a) yi-9b at full width
+   and depth, bf16, 8 slots, max_seq 2048: 16 requests (prompts of
+   DECODE_PROMPTS twice over, 32 greedy tokens each; the second eight
+   wait and take freed slots, zeroed in place under the live graph)
+   through an eager engine (`cuda_graph=False`) and a captured one:
+   every request's tokens equal, the logits' largest difference at
+   three steps, one capture, 48 `decode_attention` kernels a replay
+   (profiler), the captured step replayed once more against the step
+   with the same positions read on the host, on a copy of the live
+   caches (logits and caches bit-equal), one request alone after a
+   `reset()` giving its tokens in the batch; ms a step of each (steady
+   steps, the sampled tokens' copy to the host included), the device's
+   ms and idle share a step, tokens/s, and the kernel on the engine's live caches against
+   its plain version and timed there. (b) zamba2-1.2b, 8 requests,
+   the same, 6 kernels a replay. (c) an FL checkpoint of reduced yi-9b
+   on gaia's 11 silos (rows around one seeded `init_params`, the
+   trainer's metadata, in a temporary directory) deployed by
+   `RegionalFleet.from_checkpoint` on the card and on the CPU,
+   `sweep_loads` at 20, 60 and 120 req/s (1 s, 10 ms steps): the
+   summaries equal dict for dict, loads nested, p99 monotone, one
+   capture per region engine, the tokens of card and CPU compared,
+   wall seconds per load; the kernel at the fleet's shape (fp32, hd
+   32, B 4, S 64) against its plain version. (d) `python -m
+   repro_torch.serving --skip-train` on that checkpoint (exit 0),
+   `python -m repro_torch.obs validate` of its bench and trace (exit
+   0), and the CLI without --skip-train (refused);
+16. gossip_combine: the kernel against its plain version, bit for bit
    (`torch.equal`), on the reference kernel tests' cases, T = 65537,
    T = 0, bf16, and K = 1..6 at odd T with rows off the 16-byte grid,
    and at the ring's shape (3, 368,226,304) fp32, where it is timed
    beside the plain version, a cuBLAS GEMV (`coeffs @ weights`, a
    yardstick the port never calls) and the bound;
-16. ring_gossip: `launch/fl8` on `StackedSilos(8)`, eight mamba2-370m
+17. ring_gossip: `launch/fl8` on `StackedSilos(8)`, eight mamba2-370m
    replicas at full width and depth (bf16, one seeded generator per
    silo): one round per state (overlay, half, isolated) with its checks
    (8 `gossip_combine` launches a round; 2, 1 and 0 replicas per silo
@@ -118,7 +145,7 @@ Phases, each printing one JSON line:
    of sum_j |A_ij w_j|; isolated reads only the stale buffers), then
    RING_ROUNDS timed rounds per state (ms per round, bytes per round,
    the kernel's share, peak memory) and a profile of an overlay round;
-17. run_fl_surface (this phase and those after it run with the
+18. run_fl_surface (this phase and those after it run with the
    deterministic algorithms on again; it takes no profile): the rest of
    `run_fl` for FEMNIST on gaia at full width. The 30-round run with
    `metrics=MetricsSpec()`, `trace=` and `ckpt_dir=` (every 15 rounds,
@@ -137,18 +164,18 @@ Phases, each printing one JSON line:
    time of a whole run per round (set-up included) for plain, hooked,
    hooked, plain runs, the hooked run's steady chunk from its trace, the
    checkpoint's write time and bytes;
-18. run_fl_models (run last with the next phase): the same as 4 for the
+19. run_fl_models (run last with the next phase): the same as 4 for the
    Sent140 LSTM and the iNaturalist ResNet (gaia, multigraph, batch 32,
    lr 0.05, 30 rounds), then one steady-state cycle of each, timed and
    profiled as in 5;
-19. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
+20. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
    a round, the plain aggregation bit-equal): star, mst, dmbst, ring,
    matcha and matcha_plus on gaia; the multigraph on geant, exodus and
    ebone (overlays from the blossom matching); the multigraph with
    Algorithm 1's multiplicity vector (which must train exactly as the
    default run) and another; two silos removed, randomly and by
    inefficiency;
-20. design_loop (run last, deterministic algorithms on): the
+21. design_loop (run last, deterministic algorithms on): the
    time-to-accuracy evaluator and the paper's tables.
    `evaluate_frontier` on gaia / femnist at its defaults (60 rounds,
    batch 16, 64 samples a silo) over Algorithm 1's t = 5 vector, the
@@ -166,7 +193,7 @@ Phases, each printing one JSON line:
    total). One drift trace by `python -m repro_torch.obs trace`, checked
    by `validate`. The tables' and scenarios' times and `tta_s` are
    simulated seconds of the paper's network model, not the card's;
-21. design_search (last, deterministic algorithms on): the design search
+22. design_search (last, deterministic algorithms on): the design search
    and the fault controller. (a) The paper's whole grid (105 cells, 15
    on the recurrence axis, 6,400 rounds) by `TimingGrid.reports` on the
    device grid (`backend="torch"`) and on the host, equal report for
@@ -1811,10 +1838,12 @@ def _decode_timing(torch, ctx, sets, lens_host, *, plain=True,
     lib_err = float((sdpa(q, k, v)()[:, :, 0].float()
                      - kernel(q, k, v)().float()).abs().max())
     rows = int(lens_host.sum())            # cache rows this run must read
-    nbytes = 2 * (2 * rows * hkv * hd + 2 * b * hq * hd) + 4 * b
+    esize = q.element_size()
+    nbytes = esize * (2 * rows * hkv * hd + 2 * b * hq * hd) + 4 * b
     flops = 4 * rows * hq * hd
-    bw, _, rate_key = card_rates(ctx["kind"])
-    peak = bf16_peak(ctx["kind"])
+    bw, fp32_peak, rate_key = card_rates(ctx["kind"])
+    bf16 = q.dtype == torch.bfloat16       # fp32 runs on the CUDA cores
+    peak = bf16_peak(ctx["kind"]) if bf16 else fp32_peak
     bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     shape = dict(b=b, s=s, hq=hq, hkv=hkv, hd=hd,
@@ -1835,8 +1864,9 @@ def _decode_timing(torch, ctx, sets, lens_host, *, plain=True,
         library_max_abs_diff=lib_err, bound_ms=bound_ms,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         bound_share=bound_ms / kernel_ms,
-        bytes=nbytes, bytes_all_s=2 * 2 * b * s * hkv * hd, flops=flops,
-        rates=dict(card=rate_key, hbm_bytes_per_s=bw, bf16_flop_per_s=peak),
+        bytes=nbytes, bytes_all_s=esize * 2 * b * s * hkv * hd, flops=flops,
+        rates={"card": rate_key, "hbm_bytes_per_s": bw,
+               ("bf16" if bf16 else "fp32") + "_flop_per_s": peak},
         achieved_gb_per_s=nbytes / kernel_ms / 1e6)
 
 
@@ -2612,6 +2642,434 @@ def phase_hybrid_decode(torch, ctx):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# serving: the slot engine with its decode step captured as one CUDA graph,
+# the regional fleet over an FL checkpoint, the traffic sweep and the CLI
+# ---------------------------------------------------------------------------
+
+#: engine steps whose logits the eager and the captured engine compare: a
+#: prompt step, the first wave's last prompt step, a generating step
+SERVE_PROBES = (20, 127, 150)
+#: steady engine steps profiled, from SERVE_PROFILE_AT on
+SERVE_PROFILE_AT, SERVE_PROFILE_STEPS = 40, 4
+#: the fleet: reduced yi-9b (fp32, hd 32) on gaia's 11 silos, the CLI's
+#: slots and max_seq, the reference CLI's loads
+FLEET_SILOS, FLEET_SLOTS, FLEET_SEQ = 11, 4, 64
+FLEET_LOADS = (20.0, 60.0, 120.0)
+FLEET_TRAFFIC = dict(duration_ms=1000.0, step_ms=10.0)
+
+
+def _requests(prompts, new_tokens):
+    from repro_torch.serving import Request
+    return [Request(prompt=[int(t) for t in p], max_new_tokens=new_tokens)
+            for p in prompts]
+
+
+def _drive(torch, engine, requests, *, profile=False) -> dict:
+    """Submit ``requests`` and step ``engine`` until every one completes,
+    timing each step on the host clock (a step ends with the sampled
+    tokens' copy to the host). With ``profile``, SERVE_PROFILE_STEPS steps
+    from SERVE_PROFILE_AT on run under the profiler, again on the next
+    steps when a profile saw no device record (at most five times); they
+    are left out of the times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for r in requests:
+        engine.submit(r)
+    times, prof, blind = [], None, 0
+    while engine.queue or any(not s.free for s in engine.slots):
+        if (profile and prof is None and blind < 5
+                and len(times) >= SERVE_PROFILE_AT):
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as p:
+                for _ in range(SERVE_PROFILE_STEPS):
+                    engine.step()
+                torch.cuda.synchronize()
+            ev = [e for e in p.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            if not ev:
+                blind += 1
+                continue
+            n = SERVE_PROFILE_STEPS
+            kern = sorted(((e.self_device_time_total, e.key, e.count)
+                           for e in ev), reverse=True)
+            prof = dict(
+                steps=n, device_busy_ms=sum(k[0] for k in kern) / 1e3 / n,
+                device_ops_per_step=sum(k[2] for k in kern) / n,
+                decode_attention_per_step=sum(
+                    k[2] for k in kern if "decode_attn" in k[1]) / n,
+                top_kernels=[dict(kernel=k[1][:90], device_ms=k[0] / 1e3 / n,
+                                  calls=k[2] / n) for k in kern[:6]],
+                profiles_without_ops=blind)
+            continue
+        t0 = time.perf_counter()
+        engine.step()
+        times.append(time.perf_counter() - t0)
+    if profile and prof is None:
+        raise AssertionError(f"the profiler saw no device record in {blind} "
+                             "profiles of the captured step")
+    steady = times[2:]
+    ms = 1e3 * sum(steady) / len(steady)
+    out = dict(steps=engine.steps, timed_steps=len(times),
+               run_s=sum(times), ms_per_step=ms,
+               ms_per_step_median=1e3 * sorted(steady)[len(steady) // 2],
+               first_steps_ms=[1e3 * t for t in times[:2]],
+               # generated tokens a step at the steady step rate
+               tokens_per_s=sum(len(r.output) for r in requests)
+               / engine.steps * 1e3 / ms)
+    if prof is not None:
+        prof["idle_share"] = max(0.0, 1 - prof["device_busy_ms"]
+                                 / out["ms_per_step"])
+        out["profile"] = prof
+    return out
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def _host_positions_check(torch, cfg, params, engine) -> dict:
+    """The captured step (positions kept on the card, unchecked there)
+    replayed once more on the engine's live caches and positions, against
+    `make_serve_step`'s step with the same positions read on the host
+    (range-checked, uploaded) on a copy of the same caches: logits and
+    caches bit-equal. This replay is a check, not a step of the engine."""
+    import numpy as np
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import _cache_leaves
+    pos = torch.from_numpy(engine.positions.copy())
+    tok = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, engine.max_slots))
+    copy = _clone_tree(engine.caches)
+    host, _ = make_serve_step(cfg)(params, tok[:, None].cuda(),
+                                  tf.DecodeState(caches=copy, position=pos))
+    engine._dev_in.copy_(torch.stack([tok, pos]))
+    engine._graph.replay()
+    torch.cuda.synchronize()
+    diff = float((host.float() - engine._logits.float()).abs().max())
+    caches_equal = all(torch.equal(a, b) for a, b in zip(
+        _cache_leaves(copy), _cache_leaves(engine.caches)))
+    if diff != 0.0 or not caches_equal:
+        raise AssertionError(f"{cfg.name}: the captured step with positions "
+                             f"{pos.tolist()} on the card is {diff} off the "
+                             "host-position step (caches equal: "
+                             f"{caches_equal})")
+    return dict(positions=pos.tolist(), logits_max_abs_diff=diff,
+                caches_equal=True)
+
+
+def _engine_pair(torch, ctx, cfg, params, prompts, kv, alone: int,
+                 label: str) -> tuple:
+    """The same requests (DECODE_NEW tokens each) through an eager engine
+    (`cuda_graph=False`) and a captured one, bf16, DECODE_SLOTS slots,
+    DECODE_MAX_SEQ; ``kv(engine)`` gives the stacked caches the
+    attention layers read. Tokens equal request for request, one
+    capture, the profiler's `decode_attention` kernels per replay
+    (`want` = the attention layers), logits at SERVE_PROBES, the kernel
+    on the captured engine's live caches against its plain version and
+    timed there, the captured step against the host-position step
+    (`_host_positions_check`), then request ``alone`` served alone after
+    a `reset()`: the same tokens as in the batch."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import WARMUP_STEPS
+    probes = {"eager": {}, "graph": {}}
+
+    def sampler(name):
+        calls = [0]
+
+        def sample(logits):
+            if calls[0] in SERVE_PROBES:
+                probes[name][calls[0]] = logits.float().clone()
+            calls[0] += 1
+            return torch.argmax(logits, -1)
+        return sample
+
+    kw = dict(max_slots=DECODE_SLOTS, max_seq=DECODE_MAX_SEQ,
+              dtype=torch.bfloat16, device="cuda")
+    eager = ServingEngine(cfg, params, cuda_graph=False,
+                         sample=sampler("eager"), **kw)
+    want = kv(eager)["k"].shape[0]
+    e_reqs = _requests(prompts, DECODE_NEW)
+    dec.decode_attention.launches = 0
+    e_run = _drive(torch, eager, e_reqs)
+    eager_launches = dec.decode_attention.launches
+    del eager
+    graph = ServingEngine(cfg, params, sample=sampler("graph"), **kw)
+    g_reqs = _requests(prompts, DECODE_NEW)
+    dec.decode_attention.launches = 0
+    g_run = _drive(torch, graph, g_reqs, profile=True)
+    wrapper = dec.decode_attention.launches
+    per_replay = g_run["profile"]["decode_attention_per_step"]
+    if per_replay != want:
+        raise AssertionError(f"{cfg.name}: the profiler saw {per_replay} "
+                             f"decode_attention kernels a replay, not "
+                             f"{want}")
+    if wrapper != (WARMUP_STEPS + 1) * want or graph.captures != 1:
+        raise AssertionError(f"{cfg.name}: {graph.captures} captures, "
+                             f"{wrapper} wrapper calls")
+    same = sum(a.output == b.output for a, b in zip(e_reqs, g_reqs))
+    if same != len(prompts):
+        raise AssertionError(f"{cfg.name}: captured tokens differ from "
+                             f"eager in {len(prompts) - same} of "
+                             f"{len(prompts)} requests")
+    probe_diff = {k: float((probes["eager"][k] - probes["graph"][k])
+                           .abs().max()) for k in probes["graph"]}
+    lens = torch.clamp(torch.from_numpy(graph.positions + 1),
+                       max=DECODE_MAX_SEQ).to(torch.int32)
+    live = _decode_live_check(torch, ctx, cfg, kv(graph),
+                              {"generating": lens}, label=label, row=False)
+    host_positions = _host_positions_check(torch, cfg, params, graph)
+    graph.reset()
+    solo = _requests([prompts[alone]], DECODE_NEW)
+    graph.submit(solo[0])
+    graph.run()
+    if solo[0].output != g_reqs[alone].output or graph.captures != 1:
+        raise AssertionError(f"{cfg.name}: request {alone} alone gave "
+                             "other tokens than in the batch, or the "
+                             f"engine captured again ({graph.captures})")
+    launches = wrapper - want + graph.steps * want  # want == per_replay
+    del graph
+    torch.cuda.empty_cache()
+    row = dict(launches=launches,
+               max_abs_err=max(live["max_abs_diff"].values()),
+               ms=live["kernel_ms"], plain_ms=live["plain_ms"],
+               bound_ms=live["bound_ms"], bound_by=live["bound_by"],
+               library_ms=live["library_ms"])
+    return dict(
+        requests=len(prompts), prompt_lengths=[len(p) for p in prompts],
+        new_tokens=DECODE_NEW, slots=DECODE_SLOTS, max_seq=DECODE_MAX_SEQ,
+        tokens_equal=same, alone_request=alone, alone_equal=True,
+        captures=1, eager=e_run, captured=g_run,
+        speedup=e_run["ms_per_step"] / g_run["ms_per_step"],
+        eager_decode_attention_launches=eager_launches,
+        decode_attention_per_replay=per_replay,
+        decode_attention_launches=launches, replays_note=(
+            "launches = wrapper calls (warm-up steps and the capture) - "
+            "the capture's + steps (replays) x kernels a replay"),
+        logits_max_abs_diff_at_probes=probe_diff,
+        host_positions_check=host_positions,
+        weight_floor_ms=_param_bytes(params) / card_rates(ctx["kind"])[0]
+        * 1e3, decode_attention_live=live), row
+
+
+def _fleet_checkpoint(torch, ckpt_dir) -> dict:
+    """An FL checkpoint of reduced yi-9b on gaia's 11 silos, as
+    launch/train.py writes one: rows drawn around one `init_params` from
+    a seeded generator, the trainer's metadata."""
+    from repro_torch.checkpoint import CheckpointManager, save_fl_checkpoint
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.fl import flat
+    from repro_torch.models import transformer as tf
+    cfg = reduce(get_config(LLM_ARCH))
+    gen = torch.Generator().manual_seed(0)
+    params = tf.init_params(cfg, gen, device="cpu")
+    base = flat.ravel(flat.make_flat_spec(params), params)
+    rows = base[None] + 0.01 * torch.randn((FLEET_SILOS, base.numel()),
+                                           generator=gen)
+    meta = dict(round=6, arch="yi-9b", network="gaia",
+                dataset="synthetic-lm", workload="femnist",
+                topology="multigraph", t=2, seed=0, num_silos=FLEET_SILOS,
+                lora_rank=0, params_kind="full", seq_len=16, lr=1e-3,
+                sim_time_ms=1234.5, loss_tail=[])
+    save_fl_checkpoint(CheckpointManager(ckpt_dir), 6, rows, **meta)
+    return dict(arch=cfg.name, rows=list(rows.shape), step=6)
+
+
+def _fleet(torch, ctx, ckpt_dir) -> tuple:
+    """`RegionalFleet.from_checkpoint` on the card and on the CPU,
+    `sweep_loads` at FLEET_LOADS one load a call (timed) on each: the
+    summaries equal dict for dict, the loads nested, p99 monotone, one
+    capture per region engine; the tokens of card and CPU compared
+    request for request; `decode_attention` on a region engine's live
+    caches (fp32, hd 32) against its plain version and timed there."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.serving import (RegionalFleet, Request, TrafficConfig,
+                                     generate_requests, sweep_loads)
+    from repro_torch.serving.engine import WARMUP_STEPS
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    cfg = TrafficConfig(**FLEET_TRAFFIC)
+    out, results, tokens, fleets = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fleets[dev] = fleet = RegionalFleet.from_checkpoint(
+            ckpt_dir, max_slots=FLEET_SLOTS, max_seq=FLEET_SEQ, device=dev)
+        build_s = time.perf_counter() - t0
+        dec.decode_attention.launches = 0
+        walls, results[dev], tokens[dev] = [], [], []
+        for load in FLEET_LOADS:
+            t0 = time.perf_counter()
+            results[dev] += sweep_loads(fleet, cfg, [load])
+            walls.append(time.perf_counter() - t0)
+            tokens[dev] += [req.output for reg in fleet.regions.values()
+                            for req in reg.engine.completed]
+        steps = sum(r.engine.steps for r in fleet.regions.values())
+        out[dev] = dict(build_s=build_s, wall_s_per_load=walls,
+                        engine_steps=steps,
+                        ms_per_engine_step=1e3 * sum(walls) / steps)
+        if dev == "cuda":
+            wrapper = dec.decode_attention.launches
+    card = fleets["cuda"]
+    cfg_m = next(iter(card.regions.values())).engine.cfg
+    layers = cfg_m.num_layers
+    caps = {r: v.engine.captures for r, v in card.regions.items()}
+    if set(caps.values()) != {1} or wrapper != (WARMUP_STEPS + 1) * layers \
+            * len(caps):
+        raise AssertionError(f"fleet: captures {caps}, {wrapper} wrapper "
+                             "calls")
+    summaries = {dev: [r.summary for r in res] for dev, res in
+                 results.items()}
+    if summaries["cuda"] != summaries["cpu"]:
+        raise AssertionError("fleet: card and CPU summaries differ: "
+                             f"{summaries}")
+    keys = [{(r.t_gen, r.site) for r in generate_requests(card, cfg, ld)}
+            for ld in FLEET_LOADS]
+    p99 = [s["p99_ms"] for s in summaries["cuda"]]
+    if not (keys[0] <= keys[1] <= keys[2]) or p99 != sorted(p99) \
+            or any(s["completed"] != s["arrived"] for s in
+                   summaries["cuda"]):
+        raise AssertionError(f"fleet: loads not nested, p99 {p99} not "
+                             "monotone, or a load did not drain")
+    agree = sum(a == b for a, b in zip(tokens["cuda"], tokens["cpu"]))
+    # the kernel on the live caches of the first region's engine
+    eng = next(iter(card.regions.values())).engine
+    kv = eng.caches["kv"][0]
+    lens = torch.clamp(torch.from_numpy(eng.positions + 1),
+                       max=FLEET_SEQ).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sets, errs = [], []
+    for i in range(layers):
+        q = torch.randn((FLEET_SLOTS, cfg_m.num_heads, cfg_m.head_dim),
+                        generator=gen, device="cuda")
+        got = dec.decode_attention(q, kv["k"][i], kv["v"][i], lens)
+        errs.append(_compare(torch, got, _dec_plain(q, kv["k"][i],
+                                                    kv["v"][i], lens),
+                             "float32", f"decode_attention, fleet layer {i}"))
+        sets.append((q, kv["k"][i], kv["v"][i]))
+    timing = _decode_timing(torch, ctx, sets, lens)
+    # the kernels a replay, from the profiler, on one more request (these
+    # replays are not the sweep's)
+    eng.submit(Request(prompt=[1] * 8, max_new_tokens=8))
+    seen = []
+    for _ in range(3):
+        before = eng.steps
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as p:
+            for _ in range(4):
+                eng.step()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in p.key_averages()
+                if e.device_type == DeviceType.CUDA and "decode_attn" in e.key)
+        if n:
+            seen.append(n / (eng.steps - before))
+            break
+    if seen != [layers]:
+        raise AssertionError(f"fleet: the profiler saw {seen} decode_attention"
+                             f" kernels a replay, not {layers}")
+    launches = wrapper - layers * len(caps) + out["cuda"]["engine_steps"] \
+        * layers
+    row = dict(launches=launches, max_abs_err=max(errs),
+               ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
+               bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+               library_ms=timing["library_ms"])
+    del card, fleets, fleet, eng, kv, sets
+    return dict(arch=cfg_m.name, regions=list(caps), captures=caps,
+                loads=list(FLEET_LOADS), traffic=FLEET_TRAFFIC,
+                slots=FLEET_SLOTS, max_seq=FLEET_SEQ, summaries=summaries[
+                    "cuda"], summaries_equal=True, p99_ms=p99,
+                tokens_agree=agree, requests=len(tokens["cuda"]),
+                decode_attention_per_replay=layers,
+                decode_attention_launches=launches,
+                card=out["cuda"], cpu=out["cpu"],
+                decode_attention_fleet_shape=dict(max_abs_diff=errs,
+                                                  **timing)), row
+
+
+def _serving_cli(torch, tmp: Path) -> dict:
+    """`python -m repro_torch.serving --skip-train` on the fleet's
+    checkpoint (exit 0, every load drained), `python -m repro_torch.obs
+    validate` of its bench and trace (exit 0), and the CLI without
+    --skip-train (refused, naming queue 1 #7)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    bench, trace = tmp / "BENCH_torch_serving.json", tmp / "serve.json"
+
+    def run(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", *args], env=env, cwd=tmp,
+                           capture_output=True, text=True, timeout=600)
+        return r, time.perf_counter() - t0
+
+    serve, serve_s = run("repro_torch.serving", "--skip-train", "--ckpt-dir",
+                         str(tmp / "ckpt"), "--loads", "20,60", "--bench",
+                         str(bench), "--trace", str(trace))
+    if serve.returncode != 0:
+        raise AssertionError(f"serving CLI exit {serve.returncode}: "
+                             f"{serve.stderr[-2000:]}")
+    rows = json.loads(serve.stdout)["serve"]
+    if len(rows) != 2 or any(s["completed"] != s["arrived"] for s in rows):
+        raise AssertionError(f"serving CLI rows: {rows}")
+    check, _ = run("repro_torch.obs", "validate", str(trace), "--bench",
+                   str(bench))
+    refused, _ = run("repro_torch.serving", "--ckpt-dir", str(tmp / "ckpt"))
+    if check.returncode != 0 or refused.returncode == 0 \
+            or "queue 1 #7" not in refused.stderr:
+        raise AssertionError(f"validate exit {check.returncode} "
+                             f"({check.stdout[-500:]}), refusal exit "
+                             f"{refused.returncode} ({refused.stderr[-500:]})")
+    return dict(serve_exit=0, serve_s=serve_s, serve_rows=rows,
+                validate_exit=0, refused_exit=refused.returncode,
+                refused_message=refused.stderr.strip().splitlines()[-1])
+
+
+def phase_serving(torch, ctx):
+    import tempfile
+
+    import numpy as np
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(10)
+    cfg, params = _llm(torch, ctx)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in DECODE_PROMPTS * 2]
+    yi, yi_row = _engine_pair(torch, ctx, cfg, params, prompts,
+                              lambda e: e.caches["kv"][0], alone=8,
+                              label="layer")
+    del ctx["llm"], params
+    torch.cuda.empty_cache()
+    cfg, params, _ = _ssm_model(torch, ctx, SSM_ARCHS["hybrid"])
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in DECODE_PROMPTS]
+    zamba, zamba_row = _engine_pair(torch, ctx, cfg, params, prompts,
+                                    lambda e: e.caches["shared_kv"], alone=0,
+                                    label="application")
+    ctx.pop("ssm_model", None)
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = _fleet_checkpoint(torch, tmp / "ckpt")
+        fleet, fleet_row = _fleet(torch, ctx, tmp / "ckpt")
+        cli = _serving_cli(torch, tmp)
+    ctx["serving_rows"] = [
+        dict(path=f"serving: the yi-9b engine, {len(DECODE_PROMPTS) * 2} "
+             f"requests through {DECODE_SLOTS} slots, captured",
+             **yi_row),
+        dict(path=f"serving: the zamba2-1.2b engine, {len(DECODE_PROMPTS)} "
+             "requests, captured", **zamba_row),
+        dict(path=f"serving: the reduced yi-9b fleet on gaia "
+             f"({len(fleet['regions'])} region engines, fp32, hd 32), "
+             f"sweep_loads at {list(FLEET_LOADS)}", **fleet_row)]
+    emit(phase="serving", ok=True, seconds=time.perf_counter() - t_phase,
+         yi_9b=yi, zamba2=zamba, fleet_checkpoint=ckpt, fleet=fleet,
+         cli=cli)
+
+
 # gossip_combine cases: (K, T, dtype, offset). The reference kernel tests'
 # cases (tests/test_kernels.py), T = 65537, T = 0, bf16 at an odd width,
 # and K = 1..6 at odd T with the weights starting `offset` elements into
@@ -3027,7 +3485,8 @@ def main() -> int:
               phase_cycle, phase_flash_attention, phase_decode_attention,
               phase_llm_prefill, phase_llm_decode, phase_ssd_scan,
               phase_ssm_prefill, phase_ssm_decode, phase_hybrid_prefill,
-              phase_hybrid_decode, phase_gossip_combine, phase_ring_gossip,
+              phase_hybrid_decode, phase_serving, phase_gossip_combine,
+              phase_ring_gossip,
               phase_run_fl_surface, phase_run_fl_models, phase_topologies,
               phase_design_loop, phase_design_search]
     for phase in phases:
@@ -3063,6 +3522,9 @@ def main() -> int:
                     "src/repro/kernels/flash_attention/kernel.py:104"),
         _kernel_row(ctx, "decode_attention",
                     "src/repro/kernels/decode_attention/kernel.py:75"),
+        *[dict(_kernel_row(ctx, "decode_attention",
+                           "src/repro/kernels/decode_attention/kernel.py:75"),
+               **row) for row in ctx["serving_rows"]],
         _kernel_row(ctx, "ssd_scan",
                     "src/repro/kernels/ssd_scan/kernel.py:71")]}))
     print(ctx["smi"])

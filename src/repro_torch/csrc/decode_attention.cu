@@ -43,8 +43,9 @@
 //   in). bf16: S^T = K Q^T by mma.sync.m16n8k16 (A: 16 key rows by
 //   ldmatrix, B: the query heads staged in shared memory), then
 //   O^T += V^T P^T (A: V through ldmatrix.trans, B: P rounded to bf16 and
-//   moved through shared memory into B-fragment order). fp32 (used by the
-//   tests only): the same thread-to-(key, head) and (column, head) maps
+//   moved through shared memory into B-fragment order). fp32 (the tests'
+//   and the reduced fp32 models' route, e.g. the serving fleet's at hd
+//   32): the same thread-to-(key, head) and (column, head) maps
 //   with FMAs on the CUDA cores, so no TF32 rounding. A box reads whole
 //   tiles, so rows at or past the CTA's end reach shared memory: their
 //   scores are selected to -inf and their V elements selected to 0 in

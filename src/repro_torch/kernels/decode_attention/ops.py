@@ -18,7 +18,10 @@ asynchronously, unless the caller hands the same values already on the
 card as `lengths_dev` (int32), which the kernel then reads as they are;
 the transformer's decode step does that, so no layer uploads them. A
 lengths tensor on the card is checked with one device-to-host read,
-which waits for the card.
+which waits for the card. `lengths` may be None when `lengths_dev` is
+given: nothing is then read back or copied, so the call can be captured
+in a CUDA graph, and keeping the values in 1..S is the caller's (the
+decode step's clamp(pos + 1, max=S) of positions >= 0).
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, lengths) -> None:
+def _check(q, k, v, lengths, *, values: bool = True) -> None:
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("decode_attention: q must be (B, Hq, hd) and the "
                          "caches (B, S, Hkv, hd)")
@@ -86,7 +89,7 @@ def _check(q, k, v, lengths) -> None:
                          f" is not ({b},)")
     if lengths.dtype.is_floating_point or lengths.dtype == torch.bool:
         raise TypeError(f"decode_attention: lengths is {lengths.dtype}")
-    if b == 0:
+    if b == 0 or not values:
         return
     lo, hi = (int(x) for x in torch.aminmax(lengths))
     if lo < 1 or hi > k.shape[1]:
@@ -134,14 +137,21 @@ def _check_lengths_dev(lengths_dev, q) -> None:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, *,
+                     lengths: torch.Tensor | None, *,
                      lengths_dev: torch.Tensor | None = None) -> torch.Tensor:
     """q (B, Hq, hd), k/v (B, S, Hkv, hd), lengths (B,) in 1..S ->
     (B, Hq, hd) in q's type, fp32 accumulation. ``lengths_dev``, if
     given, holds the same values as ``lengths`` on q's card (int32); the
     kernel reads it in place of a copy of ``lengths``. The plain version
-    on the CPU ignores it."""
-    _check(q, k, v, lengths)
+    on the CPU ignores it. With ``lengths`` None the values of
+    ``lengths_dev`` are taken unchecked (module docstring)."""
+    if lengths is None:
+        if lengths_dev is None:
+            raise ValueError("decode_attention: give lengths or lengths_dev")
+        _check(q, k, v, lengths_dev, values=False)
+        lengths = lengths_dev
+    else:
+        _check(q, k, v, lengths)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
                                     lengths)

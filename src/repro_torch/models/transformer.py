@@ -285,8 +285,9 @@ class DecodeState:
       hybrid: {"ssm": ..., "shared_kv": {"k", "v"}}, one (B, S, Hkv, hd)
               cache per application of the shared block.
     position: an int or 0-d tensor (every slot at the same position) or
-    a (B,) integer tensor (per-slot positions, continuous batching),
-    kept on the host. Group metadata comes from kv_group_spec(cfg,
+    a (B,) integer tensor (per-slot positions, continuous batching), read
+    on the host unless `decode_step(device_positions=True)` keeps it on
+    the model's device. Group metadata comes from kv_group_spec(cfg,
     max_seq).
     """
 
@@ -327,21 +328,30 @@ class SlotIndex:
     rope_pos: torch.Tensor     # (B, 1) positions, on the model's device
     rows: torch.Tensor         # (B,) slot rows
     wpos: torch.Tensor         # (B,) ring-buffer write index, pos % len
-    lengths: torch.Tensor      # (B,) int32 valid rows, on the host
+    lengths: torch.Tensor | None  # (B,) int32 valid rows on the host, or None
     lengths_dev: torch.Tensor  # the same, int32 on the model's device
 
 
 def slot_index(pos: torch.Tensor, cache_len: int, device) -> SlotIndex:
-    """pos: (B,) int64 positions on the host."""
+    """pos: (B,) int64 positions, on the host or on ``device``.
+
+    Host positions on a card are staged in pinned memory and copied over
+    once a step. Positions already on the card (`decode_step`'s
+    device_positions=True) stay there: every index is derived on the
+    card, nothing is read back and `lengths` is None, so the attention
+    checks no range and the step can be captured in a CUDA graph that
+    reads its positions from a static buffer."""
+    rows = torch.arange(pos.shape[0], device=device)
     lengths = torch.clamp(pos + 1, max=cache_len).to(torch.int32)
+    if pos.device == device:
+        return SlotIndex(rope_pos=pos[:, None], rows=rows,
+                         wpos=pos % cache_len,
+                         lengths=lengths if device.type == "cpu" else None,
+                         lengths_dev=lengths)
     host = torch.stack([pos, pos % cache_len, lengths.long()])
-    if device.type == "cuda":
-        dev = host.pin_memory().to(device, non_blocking=True)
-    else:
-        dev = host.to(device)
-    return SlotIndex(rope_pos=dev[0][:, None], rows=torch.arange(
-        pos.shape[0], device=device), wpos=dev[1], lengths=lengths,
-        lengths_dev=dev[2].to(torch.int32))
+    dev = host.pin_memory().to(device, non_blocking=True)
+    return SlotIndex(rope_pos=dev[0][:, None], rows=rows, wpos=dev[1],
+                     lengths=lengths, lengths_dev=dev[2].to(torch.int32))
 
 
 def _decode_attn(bp, cfg, x, k_cache, v_cache, idx: SlotIndex,
@@ -412,22 +422,34 @@ def _hybrid_decode(params, cfg, x, caches, pos, impl="reference"):
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                state: DecodeState, *, impl: str = "reference"):
+                state: DecodeState, *, impl: str = "reference",
+                device_positions: bool = False):
     """tokens (B,1) -> (logits (B,1,V), new state). impl="kernel" uses
     the flash-decode kernel for the attention-vs-cache step (the dense
     layers and the hybrid's shared block; the Mamba2 layers' recurrent
     step is plain PyTorch for every impl, as in the reference).
 
     `state.position` may be a scalar (synchronized batch decode) or a
-    (B,) vector (continuous batching: per-slot positions). The caches are
-    written in place; the returned state holds the same cache tensors and
-    position + 1 (of the same shape)."""
+    (B,) vector (continuous batching: per-slot positions). It is read on
+    the host, where the attention op (impl="kernel") refuses a negative
+    one. With `device_positions` it must lie on the model's device and
+    stays there: on the card the step then reads nothing back, and the
+    serving engine captures it as one CUDA graph (`slot_index`); no
+    range is checked, so the caller checks its positions first, as
+    `ServingEngine` does before every step. The caches are written in
+    place; the returned state holds the same cache tensors and position +
+    1 (of the same shape)."""
     check_impl(impl)
     _check_ported(cfg, "decode_step")
     x = embed(params["embed"], tokens)
     b = tokens.shape[0]
-    pos = torch.as_tensor(state.position).cpu().long()
-    pos = torch.broadcast_to(torch.atleast_1d(pos), (b,)).contiguous()
+    pos = torch.as_tensor(state.position)
+    if not device_positions:
+        pos = pos.cpu()
+    elif pos.device != x.device:
+        raise ValueError(f"decode_step: device_positions needs the "
+                         f"positions on {x.device}, not {pos.device}")
+    pos = torch.broadcast_to(torch.atleast_1d(pos.long()), (b,)).contiguous()
     caches = state.caches
 
     if cfg.family in ("ssm", "hybrid"):

@@ -953,3 +953,66 @@ def test_frontier_candidate_equals_run_fl_on_card(cuda):
     assert dataclasses.replace(one, train_s=0.0) == \
         dataclasses.replace(got, train_s=0.0)
     assert np.isfinite(got.final_loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi_9b", "zamba2_1p2b"])
+def test_decode_step_reads_positions_on_the_card(cuda, arch):
+    """Per-slot positions kept on the card (`device_positions=True`, the
+    captured step's path: indices derived there, lengths unchecked on the
+    host) give the same logits bit for bit as the same positions read on
+    the host."""
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.models import transformer as tf
+    cfg = reduce(get_config(arch))
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    states = [tf.init_decode_state(cfg, 3, 32, dtype=torch.float32,
+                                   device=cuda) for _ in range(2)]
+    pos = torch.tensor([0, 4, 9])
+    tokens = torch.tensor([[3], [7], [11]], device=cuda)
+    for _ in range(5):
+        states[0].position, states[1].position = pos, pos.to(cuda)
+        a, _ = tf.decode_step(params, cfg, tokens, states[0], impl="kernel")
+        b, _ = tf.decode_step(params, cfg, tokens, states[1], impl="kernel",
+                              device_positions=True)
+        assert torch.equal(a, b)
+        pos = pos + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi_9b", "zamba2_1p2b"])
+def test_captured_engine_matches_eager(cuda, arch):
+    """The serving engine's captured step gives the eager engine's tokens
+    (more requests than slots, so slots are reused under the live graph),
+    and again after a `reset()`, which zeroes the caches in place: one
+    capture, the same cache addresses."""
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.engine import _cache_leaves
+    cfg = reduce(get_config(arch))
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (3, 9, 5, 12, 7, 4)]
+
+    def serve(engine):
+        reqs = [Request(prompt=list(p), max_new_tokens=6) for p in prompts]
+        for r in reqs:
+            engine.submit(r)
+        engine.run()
+        return [r.output for r in reqs]
+
+    kw = dict(max_slots=4, max_seq=32, device=cuda)
+    eager = ServingEngine(cfg, params, cuda_graph=False, **kw)
+    graph = ServingEngine(cfg, params, **kw)
+    want = serve(eager)
+    assert serve(graph) == want
+    ptrs = [a.data_ptr() for a in _cache_leaves(graph.caches)]
+    graph.reset()
+    assert all(not a.any() for a in _cache_leaves(graph.caches))
+    assert serve(graph) == want
+    assert (graph.captures, eager.captures) == (1, 0)
+    assert [a.data_ptr() for a in _cache_leaves(graph.caches)] == ptrs
