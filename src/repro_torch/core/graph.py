@@ -93,3 +93,7 @@ class MultigraphState:
 
     num_nodes: int
     edge_type: dict[Pair, int]  # pair -> STRONG | WEAK
+
+    def strong_pairs(self) -> tuple[Pair, ...]:
+        return tuple(sorted(p for p, t in self.edge_type.items()
+                            if t == STRONG))

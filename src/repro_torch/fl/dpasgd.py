@@ -10,9 +10,10 @@ A `RoundPlan` is that schedule as host-side arrays. The static designs
 (star, MST, dMBST, ring) and MATCHA's sampled matchings train through
 the same round with their own per-round strong masks and coefficients.
 
-`fl_round_step` is the legacy per-round runtime over per-leaf stacked
-trees, the oracle that the flat whole-cycle runtime (`fl/runtime.py`)
-is held against bit for bit.
+`fl_round_step` is the per-round runtime over per-leaf stacked trees:
+the legacy runtime of `run_fl`, which the flat whole-cycle runtime
+(`fl/runtime.py`) is held against bit for bit, and the LLM trainer's
+round (`launch/train.run_reduced_fl`).
 """
 
 from __future__ import annotations
@@ -29,8 +30,7 @@ from repro_torch.core.delay import Workload
 from repro_torch.core.graph import MultigraphState, SimpleGraph
 from repro_torch.design.catalog import build_topology, ring_topology
 from repro_torch.fl.flat import Params
-from repro_torch.kernels.gossip_combine.ops import csr_sort
-from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+from repro_torch.kernels.gossip_combine.ops import csr_sort, edge_aggregate
 from repro_torch.launch.mesh import tree_map
 from repro_torch.networks.zoo import NetworkSpec
 
@@ -207,23 +207,26 @@ def fl_round_step(state: FLSimState, batches, plan_src, plan_dst,
                   lr_scale: float = 1.0) -> tuple[FLSimState, torch.Tensor]:
     """One communication round over per-leaf stacked trees.
 
-    batches: ``x`` (u, N, b, ...) and ``y`` (u, N, b), one micro batch
-    per local update per silo; plan_src / plan_dst: the plan's (2E,)
-    host arrays; strong (2E,) bool, coeffs (2E,) and diag (N,): this
-    round's tensors in the plan's original edge order, on the state's
-    device. Each leaf aggregates with `edge_aggregate_ref`'s ordered sum
-    (reshaped to (N, -1), the edges dst-sorted by a stable sort, as the
-    flat runtime orders them), never `index_add_`, whose atomics on
-    CUDA add in a varying order. Returns the state and the round's mean
-    loss (a 0-d tensor).
+    batches: a dict of tensors (u, N, b, ...), one micro batch per local
+    update per silo, handed to ``loss_fn`` per silo as the dict of their
+    [u, silo] slices (``x``/``y`` for the paper's models; ``tokens``,
+    ``labels`` and ``prefix_embeds`` for the LLMs); plan_src / plan_dst:
+    the plan's (2E,) host arrays; strong (2E,) bool, coeffs (2E,) and
+    diag (N,): this round's tensors in the plan's original edge order,
+    on the state's device. The local step is `torch.func.vmap` of
+    ``loss_fn``'s gradient over the silos. Each leaf (fp32, the kernel's
+    type) aggregates through `edge_aggregate` (reshaped to (N, -1), the edges dst-sorted
+    by a stable sort, as the flat runtime orders them): the CUDA kernel
+    on a card, its plain version on the CPU, bit-equal to each other;
+    never `index_add_`, whose atomics on CUDA add in a varying order.
+    Returns the state and the round's mean loss (a 0-d tensor).
     """
     w, os_ = state.silo_params, state.opt_state
     tree_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
     losses = []
     with torch.no_grad():
         for u in range(local_updates):
-            grads, loss = tree_grads(w, {"x": batches["x"][u],
-                                         "y": batches["y"][u]})
+            grads, loss = tree_grads(w, {k: v[u] for k, v in batches.items()})
             w, os_ = opt.update(w, grads, os_, lr_scale)
             losses.append(loss)
         dev = strong.device
@@ -232,7 +235,7 @@ def fl_round_step(state: FLSimState, batches, plan_src, plan_dst,
         order_t = torch.as_tensor(order, dtype=torch.long, device=dev)
         src_t = torch.as_tensor(np.asarray(plan_src), dtype=torch.long,
                                 device=dev)
-        row_ptr_t = torch.as_tensor(row_ptr)
+        row_ptr_t = torch.as_tensor(row_ptr, device=dev)
         coeffs_sorted = coeffs[order_t]
 
         def refresh(buf, wall):
@@ -240,9 +243,9 @@ def fl_round_step(state: FLSimState, batches, plan_src, plan_dst,
             return torch.where(mask, wall[src_t], buf)
 
         def aggregate(wall, buf):
-            out = edge_aggregate_ref(wall.reshape(n, -1),
-                                     buf[order_t].reshape(len(order), -1),
-                                     coeffs_sorted, row_ptr_t, diag)
+            out = edge_aggregate(wall.reshape(n, -1),
+                                 buf[order_t].reshape(len(order), -1),
+                                 coeffs_sorted, row_ptr_t, diag)
             return out.reshape(wall.shape)
 
         buffers = tree_map(refresh, state.buffers, w)

@@ -2,18 +2,22 @@
 
 Parameters are a nested dict of tensors with the reference's names and
 shapes: `(in, out)` matrices, and `blocks` stacked on a leading layer
-axis. The forward runs a Python loop over the layers; the caches of
-`decode_step` (KV caches, SSM and conv states) are updated in place.
+axis. The forward runs a Python loop over the layers (`remat=True`
+checkpoints each layer, `torch.utils.checkpoint`, non-reentrant); the
+caches of `decode_step` (KV caches, SSM and conv states) are updated in
+place.
 
-Families in this port so far, prefill and decode:
-  dense  -- pre-norm attention + gated-MLP blocks (yi-9b, qwen2, qwen2.5);
+Families, prefill, decode and training loss:
+  dense / vlm / audio -- pre-norm attention + gated-MLP blocks (yi-9b,
+      qwen2, gemma3's mixed local/global stack with each layer's own
+      window; paligemma and musicgen prepend frontend embeddings, a
+      bidirectional prefix for vlm only);
+  moe    -- attention + top-k MoE blocks (`models/moe.py`), the aux
+      load-balance loss summed over the layers;
   ssm    -- Mamba2 (SSD) blocks (mamba2-370m);
   hybrid -- a Mamba2 backbone and ONE shared attention/MLP block applied
       after every `attn_every` layers (zamba2): shared weights, a KV
       cache of its own per application at decode.
-Each other family raises NotImplementedError naming its ROADMAP item:
-moe, vlm, audio, and gemma3's mixed local/global stack in the prefill
-forward.
 """
 
 from __future__ import annotations
@@ -22,37 +26,19 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.models import mamba2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (_project_qkv, attention, attn_init,
                                           check_impl, init_kv_cache)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (Params, apply_rope, embed, embed_init,
-                                       mlp, mlp_init, rmsnorm, rmsnorm_init,
-                                       unembed)
-
-_TODO = {
-    "moe": "ROADMAP queue 1 #7 (MoE blocks, models/moe.py)",
-    "vlm": "ROADMAP queue 1 #7 (vision/audio frontends)",
-    "audio": "ROADMAP queue 1 #7 (vision/audio frontends)",
-}
-
-
-def _unported(cfg: ModelConfig, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: {what} of the {cfg.family} family is not ported yet; "
-        f"see {_TODO.get(cfg.family, 'ROADMAP queue 1 #7')}")
-
-
-_PORTED = ("dense", "ssm", "hybrid")
-
-
-def _check_ported(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in _PORTED:
-        raise _unported(cfg, what)
+from repro_torch.models.layers import (Params, apply_rope, cross_entropy,
+                                       embed, embed_init, mlp, mlp_init,
+                                       rmsnorm, rmsnorm_init, unembed)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -106,12 +92,22 @@ def _attn_mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     """One layer's params."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "audio"):
         return _attn_mlp_init(gen, cfg, device)
-    return {  # ssm, hybrid
-        "ln": rmsnorm_init(cfg.d_model, device=device),
-        "mamba": mamba2.mamba_init(gen, cfg, _dtype(cfg), device=device),
-    }
+    if cfg.family == "moe":
+        dt = _dtype(cfg)
+        return {
+            "ln1": rmsnorm_init(cfg.d_model, device=device),
+            "attn": attn_init(gen, cfg, dt, device=device),
+            "ln2": rmsnorm_init(cfg.d_model, device=device),
+            "moe": moe_mod.moe_init(gen, cfg, dt, device=device),
+        }
+    if cfg.family in ("ssm", "hybrid"):
+        return {
+            "ln": rmsnorm_init(cfg.d_model, device=device),
+            "mamba": mamba2.mamba_init(gen, cfg, _dtype(cfg), device=device),
+        }
+    raise ValueError(cfg.family)
 
 
 def _tree_map(fn, tree):
@@ -138,12 +134,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights in the reference's distribution: normal * 1/sqrt
     (fan_in) matrices, embedding * 0.02, norm scales 1, biases 0, cast to
     `cfg.dtype` (norm scales and the Mamba2 A_log, D and dt_bias stay
-    fp32). Drawn layer by layer from ``generator`` on ``device`` (the
-    card by default), so the full model never passes through the host;
-    the generator must live there. A hybrid model also gets its one
-    `shared_attn` block."""
+    fp32, and so does the MoE router). Drawn layer by layer from
+    ``generator`` on ``device`` (the card by default), so the full model
+    never passes through the host; the generator must live there. A
+    hybrid model also gets its one `shared_attn` block."""
     cfg.validate()
-    _check_ported(cfg, "init_params")
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"init_params: generator on {generator.device}, "
@@ -180,7 +175,8 @@ def params_from_reference(params, device="cpu") -> Params:
     """Carry the reference's parameters across: the nested dict of numpy
     arrays of a `repro` transformer (``jax.device_get`` of its params)
     -> this package's nested dict of tensors, with the same names,
-    nesting, shapes, types and bits."""
+    nesting, shapes, types and bits (the MoE leaves too: the fp32
+    `router` and the experts' `w_gate`/`w_up`/`w_down`)."""
     if isinstance(params, dict):
         return {k: params_from_reference(v, device) for k, v in params.items()}
     return _to_tensor(np.asarray(params), device)
@@ -199,74 +195,167 @@ def _attn_mlp_block(bp: Params, cfg: ModelConfig, x, *, window, prefix,
     return h
 
 
+def _attn_moe_block(bp: Params, cfg: ModelConfig, x, *, impl, moe_impl):
+    h = x + attention(bp["attn"], cfg, rmsnorm(bp["ln1"], x, cfg.norm_eps),
+                      window=cfg.sliding_window, impl=impl)
+    y, aux = moe_mod.moe(bp["moe"], cfg, rmsnorm(bp["ln2"], h, cfg.norm_eps),
+                         impl=moe_impl)
+    return h + y, aux
+
+
 def _mamba_block(bp: Params, cfg: ModelConfig, x, *, impl):
     return x + mamba2.mamba_forward(
         bp["mamba"], cfg, rmsnorm(bp["ln"], x, cfg.norm_eps), impl=impl)
 
 
-def _hybrid_forward(params, cfg, x, *, impl):
+def _remat(fn, remat: bool):
+    """fn, or fn recomputed in the backward pass (the reference's
+    `jax.checkpoint` of the scanned layer body) when ``remat`` and
+    gradients are being recorded."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _hybrid_forward(params, cfg, x, *, impl, remat):
     """Mamba2 backbone (ssm, hybrid). In a hybrid the shared attention
     block runs after each segment of attn_every layers (weights shared
     across applications), then the tail segment, if any, runs without it;
-    an ssm model is all tail."""
+    an ssm model is all tail. ``remat`` checkpoints the Mamba2 layers, as
+    the reference's does."""
     k = cfg.attn_every
+    blocks = params["blocks"]
+
+    def mamba_layer(i):
+        return _remat(lambda h: _mamba_block(_layer(blocks, i), cfg, h,
+                                             impl=impl), remat)
+
     done = 0
     for _ in range(num_shared_attn_apps(cfg)):
         for i in range(done, done + k):
-            x = _mamba_block(_layer(params["blocks"], i), cfg, x, impl=impl)
+            x = mamba_layer(i)(x)
         done += k
         x = _attn_mlp_block(params["shared_attn"], cfg, x,
                             window=cfg.sliding_window, prefix=0, impl=impl)
     for i in range(done, cfg.num_layers):
-        x = _mamba_block(_layer(params["blocks"], i), cfg, x, impl=impl)
+        x = mamba_layer(i)(x)
     return x
 
 
 def _backbone(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
               prefix_embeds: torch.Tensor | None = None,
-              impl: str = "reference"):
+              impl: str = "reference", moe_impl: str = "gather",
+              remat: bool = False):
     check_impl(impl)
-    _check_ported(cfg, "the forward")
     x = embed(params["embed"], tokens)
+    prefix = 0
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    if cfg.family in ("ssm", "hybrid"):
-        x = _hybrid_forward(params, cfg, x, impl=impl)
-    else:
-        wins = layer_windows(cfg)
-        if not (wins == wins[0]).all():
-            raise NotImplementedError(
-                f"{cfg.name}: the mixed local/global stack "
-                "(_dyn_window_block) is not ported yet; see ROADMAP queue 1 "
-                "#7")
-        w0 = int(wins[0])
+        # bidirectional over the image patches; audio's prefix is causal
+        prefix = prefix_embeds.shape[1] if cfg.family == "vlm" else 0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = params["blocks"]
+    if cfg.family in ("dense", "vlm", "audio"):
+        # gemma3's mixed stack: each layer with its own window (1024 local,
+        # 0 global), which the reference's `_dyn_window_block` masks
+        for i, win in enumerate(layer_windows(cfg)):
+            x = _remat(lambda h, bp=_layer(blocks, i), w=int(win):
+                       _attn_mlp_block(bp, cfg, h, window=w, prefix=prefix,
+                                       impl=impl), remat)(x)
+    elif cfg.family == "moe":
         for i in range(cfg.num_layers):
-            x = _attn_mlp_block(_layer(params["blocks"], i), cfg, x,
-                                window=w0, prefix=0, impl=impl)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _remat(lambda h, bp=_layer(blocks, i): _attn_moe_block(
+                bp, cfg, h, impl=impl, moe_impl=moe_impl), remat)(x)
+            aux = aux + a
+    elif cfg.family in ("ssm", "hybrid"):
+        x = _hybrid_forward(params, cfg, x, impl=impl, remat=remat)
+    else:
+        raise ValueError(cfg.family)
+    return x, aux
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                    prefix_embeds: torch.Tensor | None = None,
-                   impl: str = "reference"):
+                   impl: str = "reference", moe_impl: str = "gather",
+                   remat: bool = False):
     """Backbone only: tokens -> (final hidden (B,S,D) pre-unembed, aux)."""
     return _backbone(params, cfg, tokens, prefix_embeds=prefix_embeds,
-                     impl=impl)
+                     impl=impl, moe_impl=moe_impl, remat=remat)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None,
-            impl: str = "reference", last_only: bool = False):
+            impl: str = "reference", moe_impl: str = "gather",
+            remat: bool = False, last_only: bool = False):
     """tokens (B,S) [+ prefix (B,P,D)] -> (logits, aux_loss).
 
     last_only=True unembeds just the final position (serving prefill),
     so no (B, S, V) logits tensor is made."""
     x, aux = _backbone(params, cfg, tokens, prefix_embeds=prefix_embeds,
-                       impl=impl)
+                       impl=impl, moe_impl=moe_impl, remat=remat)
     if last_only:
         x = x[:, -1:, :]
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return unembed(params["embed"], x), aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def streamed_cross_entropy(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                           labels: torch.Tensor,
+                           block: int = 256) -> torch.Tensor:
+    """Blockwise unembed + softmax cross entropy over the sequence: no
+    (B, S, V) logits tensor is made, and with gradients on each block is
+    checkpointed, so the backward recomputes its logits instead of
+    keeping (B, block, V) fp32 per block.
+
+    x is the PRE-ln_f hidden (B,S,D); labels (B,S)."""
+    b, s, _ = x.shape
+    block = min(block, s)
+    labels = labels.long()
+
+    def nll_sum(xc, lc):
+        h = rmsnorm(params["ln_f"], xc, cfg.norm_eps)
+        logits = unembed(params["embed"], h).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return torch.sum(logz - ll)
+
+    part = _remat(nll_sum, True)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, block):
+        total = total + part(x[:, i:i + block], labels[:, i:i + block])
+    return total / (b * s)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
+            impl: str = "reference", moe_impl: str = "gather",
+            remat: bool = False, ce_block: int | None = None):
+    """batch: {tokens (B,S), labels (B,S), [prefix_embeds (B,P,D)],
+    [mask (B,S)]} -> (loss, {"ce", "aux"}): the next-token cross entropy
+    over the token positions plus router_aux_coef * the MoE aux loss.
+
+    ce_block: if set, the streamed cross entropy (launch-scale steps)."""
+    prefix_embeds = batch.get("prefix_embeds")
+    if ce_block:
+        x, aux = forward_hidden(params, cfg, batch["tokens"],
+                                prefix_embeds=prefix_embeds, impl=impl,
+                                moe_impl=moe_impl, remat=remat)
+        if prefix_embeds is not None:
+            x = x[:, prefix_embeds.shape[1]:]
+        ce = streamed_cross_entropy(params, cfg, x, batch["labels"],
+                                    block=ce_block)
+    else:
+        logits, aux = forward(params, cfg, batch["tokens"],
+                              prefix_embeds=prefix_embeds, impl=impl,
+                              moe_impl=moe_impl, remat=remat)
+        if prefix_embeds is not None:
+            logits = logits[:, prefix_embeds.shape[1]:]
+        ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +369,8 @@ class DecodeState:
 
     caches, by family, on the model's device, updated in place by
     `decode_step`:
-      dense:  {"kv": [{"k", "v"} per kv group]}, each (L_g, B, S, Hkv, hd);
+      dense/vlm/audio/moe: {"kv": [{"k", "v"} per kv group]}, each
+              (L_g, B, S, Hkv, hd);
       ssm:    {"ssm": {"ssm" (L, B, nh, hp, ns), "conv" (L, B, K-1, C)}};
       hybrid: {"ssm": ..., "shared_kv": {"k", "v"}}, one (B, S, Hkv, hd)
               cache per application of the shared block.
@@ -299,11 +389,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device=None) -> DecodeState:
     """Zeroed caches: KV caches in ``dtype``; the SSM and conv states in
     fp32, as the reference makes them."""
-    if cfg.family not in ("dense", "vlm", "audio", "ssm", "hybrid"):
-        raise _unported(cfg, "init_decode_state")
     device = resolve_device(device)
     caches: Params = {}
-    if cfg.family in ("dense", "vlm", "audio"):
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
         caches["kv"] = [
             init_kv_cache(cfg, batch, clen, dtype, layers=len(idx),
                           device=device)
@@ -381,12 +469,20 @@ def _decode_attn(bp, cfg, x, k_cache, v_cache, idx: SlotIndex,
 
 
 def _decode_attn_ffn_block(bp, cfg, x, k_cache, v_cache, idx: SlotIndex,
-                           impl: str = "reference"):
+                           impl: str = "reference",
+                           moe_impl: str = "gather"):
     xn = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     y, k_cache, v_cache = _decode_attn(bp, cfg, xn, k_cache, v_cache, idx,
                                        impl=impl)
     h = x + y
-    y2 = mlp(bp["mlp"], rmsnorm(bp["ln2"], h, cfg.norm_eps), cfg.mlp_act)
+    if "moe" in bp:
+        # (B, 1, D): each slot routes its one token (capacity 1 a row)
+        y2, _ = moe_mod.moe(bp["moe"], cfg,
+                            rmsnorm(bp["ln2"], h, cfg.norm_eps),
+                            impl=moe_impl)
+    else:
+        y2 = mlp(bp["mlp"], rmsnorm(bp["ln2"], h, cfg.norm_eps),
+                 cfg.mlp_act)
     return h + y2, k_cache, v_cache
 
 
@@ -423,11 +519,12 @@ def _hybrid_decode(params, cfg, x, caches, pos, impl="reference"):
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 state: DecodeState, *, impl: str = "reference",
-                device_positions: bool = False):
+                moe_impl: str = "gather", device_positions: bool = False):
     """tokens (B,1) -> (logits (B,1,V), new state). impl="kernel" uses
-    the flash-decode kernel for the attention-vs-cache step (the dense
-    layers and the hybrid's shared block; the Mamba2 layers' recurrent
-    step is plain PyTorch for every impl, as in the reference).
+    the flash-decode kernel for the attention-vs-cache step (every
+    attention layer, and the hybrid's shared block; the Mamba2 layers'
+    recurrent step is plain PyTorch for every impl, as in the reference).
+    A moe layer routes each slot's token through ``moe_impl``.
 
     `state.position` may be a scalar (synchronized batch decode) or a
     (B,) vector (continuous batching: per-slot positions). It is read on
@@ -440,7 +537,6 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     place; the returned state holds the same cache tensors and position +
     1 (of the same shape)."""
     check_impl(impl)
-    _check_ported(cfg, "decode_step")
     x = embed(params["embed"], tokens)
     b = tokens.shape[0]
     pos = torch.as_tensor(state.position)
@@ -467,7 +563,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             for li, layer in enumerate(layers):
                 x, _, _ = _decode_attn_ffn_block(
                     _layer(params["blocks"], layer), cfg, x, kc[li], vc[li],
-                    idx, impl=impl)
+                    idx, impl=impl, moe_impl=moe_impl)
 
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x)

@@ -1,25 +1,28 @@
-"""Serve an FL checkpoint, end to end (counterpart of `python -m
+"""Train -> deploy -> serve, end to end (counterpart of `python -m
 repro.serving`, DESIGN.md §18).
 
-  python -m repro_torch.serving --skip-train --ckpt-dir DIR --loads 20,60,120
+  python -m repro_torch.serving --network gaia --rounds 6 --loads 20,60,120
 
-deploys DIR's latest FL checkpoint as a regional fleet (one
-ServingEngine replica per continent with silos, serving/fleet.py), its
-decode steps captured as CUDA graphs on the card, then sweeps open-loop
-offered load through the fleet (serving/traffic.py) and prints one
-summary row per load. Training first (the reference's default, through
-`launch/train.run_reduced_fl`) waits for the port of launch/train.py
-(ROADMAP queue 1 #7): without --skip-train, or with --mesh or
---lora-rank, the command refuses before anything runs, and the
-reference's training flags (--arch, --network, --topology, --silos,
---rounds, --t, --ckpt-every) come with that port: argparse rejects them.
+runs the whole loop on one card: federally train a reduced LM over the
+network's silos with FEMNIST as the timing workload
+(`launch/train.run_reduced_fl`), emitting FL checkpoints; deploy the
+latest checkpoint as a regional fleet (one ServingEngine replica per
+continent with silos, serving/fleet.py), its decode steps captured as
+CUDA graphs on the card; then sweep open-loop offered load through the
+fleet (serving/traffic.py) and print one summary row per load.
+--mesh and --lora-rank (the mesh runtime and LoRA training) refuse
+before anything runs: ROADMAP queue 1 #6.
 
   --bench BENCH_torch_serving.json  merge serving/ rows (the format
                                `python -m repro_torch.obs validate
                                --bench` checks)
   --trace serve_trace.json     Perfetto timeline: request spans on the
                                serving clock, one track per region
-  --device cpu                 run the engines on the CPU (default: the
+  --ckpt-dir DIR               reuse/keep checkpoints (default: a
+                               temporary directory); with
+                               --skip-train, serve DIR's latest
+                               checkpoint without training first
+  --device cpu                 train and serve on the CPU (default: the
                                card)
 """
 
@@ -27,20 +30,28 @@ from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 
-_TRAINING = ("training before serving needs launch/train.py, which is not "
-             "ported yet (ROADMAP queue 1 #7)")
+_MESH = ("--mesh and --lora-rank train on the mesh runtime, which is not "
+         "ported yet (ROADMAP queue 1 #6)")
 
 
 def main(argv=None) -> int:
     # no abbreviations: the reference's --t would otherwise pass as --trace
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serving",
                                  description=__doc__, allow_abbrev=False)
+    ap.add_argument("--arch", default="mamba2-370m")
+    ap.add_argument("--network", default="gaia")
+    ap.add_argument("--topology", default="multigraph")
+    ap.add_argument("--silos", type=int, default=6)
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--t", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None,
                     help="train on the mesh runtime: an int or 'auto'")
     ap.add_argument("--lora-rank", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--skip-train", action="store_true",
                     help="serve --ckpt-dir's latest checkpoint as-is")
     ap.add_argument("--loads", default="20,60,120",
@@ -52,22 +63,32 @@ def main(argv=None) -> int:
     ap.add_argument("--bench", default=None, metavar="BENCH.json")
     ap.add_argument("--trace", default=None, metavar="OUT.json")
     ap.add_argument("--device", default=None,
-                    help="torch device of the engines (default: the card)")
+                    help="torch device to train and serve on (default: the "
+                         "card)")
     args = ap.parse_args(argv)
-    if not args.skip_train:
-        ap.error(f"{_TRAINING}; serve an existing checkpoint with "
-                 "--skip-train --ckpt-dir DIR")
     if args.mesh is not None or args.lora_rank:
-        ap.error(f"--mesh and --lora-rank train: {_TRAINING}")
-    if args.ckpt_dir is None:
+        ap.error(_MESH)
+    if args.skip_train and args.ckpt_dir is None:
         ap.error("--skip-train serves --ckpt-dir's latest checkpoint: give "
                  "--ckpt-dir")
 
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="fl_serve_")
+    out = {"ckpt_dir": ckpt_dir}
+    if not args.skip_train:
+        from repro_torch.launch.train import TrainConfig, run_reduced_fl
+        train = run_reduced_fl(TrainConfig(
+            arch=args.arch, topology=args.topology, network=args.network,
+            silos=args.silos, rounds=args.rounds, t=args.t,
+            seed=args.seed, ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every),
+            device=args.device)
+        out["train"] = {k: train[k] for k in
+                        ("arch", "topology", "silos", "loss_first",
+                         "loss_last", "train_seconds", "ckpt_steps")}
+
     from repro_torch.serving.fleet import RegionalFleet
     from repro_torch.serving.traffic import TrafficConfig, sweep_loads
-    out = {"ckpt_dir": args.ckpt_dir}
     fleet = RegionalFleet.from_checkpoint(
-        args.ckpt_dir, max_slots=args.max_slots, max_seq=args.max_seq,
+        ckpt_dir, max_slots=args.max_slots, max_seq=args.max_seq,
         device=args.device)
     out["regions"] = {r: v.silo_indices
                       for r, v in fleet.regions.items()}

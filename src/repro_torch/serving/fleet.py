@@ -27,8 +27,8 @@ Checkpoint kinds (meta["params_kind"]):
 * "lora_delta"  — rows are LoRA delta vectors over a frozen base that
                   the reference rebuilds from `jax.random.PRNGKey(seed +
                   1)`, a stream torch cannot reproduce; it raises
-                  NotImplementedError until fl/lora and launch/train
-                  are ported (ROADMAP queue 1 #6 and #7).
+                  NotImplementedError until fl/lora is ported (ROADMAP
+                  queue 1 #6).
 
 `RegionalFleet.route(lat, lon)` sends a client to its nearest region
 anchor; serving/traffic.py drives the fleet under open-loop load. On the
@@ -188,7 +188,7 @@ def _region_variants(ckpt: FLCheckpoint, mcfg, groups, device) -> dict:
             "lora_delta checkpoints are not servable by the port yet: "
             "their frozen base is rebuilt from jax.random.PRNGKey(seed + "
             "1), which torch cannot reproduce; see ROADMAP queue 1 #6 "
-            "(fl/lora) and #7 (launch/train)")
+            "(fl/lora)")
     if kind != "full":
         raise ValueError(f"unknown params_kind {kind!r}")
     # the leaves' names, shapes and types; the values are not used

@@ -1,11 +1,14 @@
 """Shared set-up of the `run_fl` parity tests (`test_torch_slice*.py`):
 start the port from the reference trainer's initial parameters and hold
-the two results against each other."""
+the two results against each other; `one_thread` for the LLM parity
+tests."""
 
 import dataclasses
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from repro.fl import FLConfig as RConfig, run_fl as rrun_fl
 from repro.models.small import SMALL_MODELS as RMODELS
@@ -51,3 +54,14 @@ def assert_same_run(got, ref, rtol: float, acc_atol: float) -> None:
     np.testing.assert_allclose(got.round_losses, ref.round_losses, rtol=rtol)
     np.testing.assert_allclose(got.eval_accs, ref.eval_accs, rtol=0,
                                atol=acc_atol)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module's tests, restored after: the
+    reduced models are too small for threads to pay, and under xdist's
+    parallel workers they only oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

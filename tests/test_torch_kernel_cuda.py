@@ -1016,3 +1016,113 @@ def test_captured_engine_matches_eager(cuda, arch):
     assert serve(graph) == want
     assert (graph.captures, eager.captures) == (1, 0)
     assert [a.data_ptr() for a in _cache_leaves(graph.caches)] == ptrs
+
+
+@pytest.mark.cuda
+def test_moe_is_bit_equal_across_runs(cuda):
+    """The MoE layer's gather dispatch at granite-moe's full width (32
+    experts, top-8, bf16, 4 rows of 512 tokens): two runs on the card
+    give the same output bit for bit (no atomics: each token's k slots
+    are summed in a fixed order); in fp32 it computes the dense oracle's
+    function when nothing drops (in bf16 the two round sums of outputs
+    near 100 apart: the experts' 1/sqrt(E) init scale)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("granite_moe_1b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.moe_init(gen, cfg, torch.bfloat16, device=cuda)
+    x = torch.randn((4, 512, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    a, aux_a = moe.moe(p, cfg, x)
+    b, aux_b = moe.moe(p, cfg, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    p32 = {k: v.float() for k, v in p.items()}
+    x32 = x[:1].float()
+    full, _ = moe.moe(p32, cfg, x32, capacity_factor=cfg.num_experts
+                      / cfg.experts_per_token)
+    dense, _ = moe.moe(p32, cfg, x32, impl="dense")
+    torch.testing.assert_close(full, dense, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_gemma3_prefill_kernel_matches_reference_impl(cuda):
+    """Reduced gemma3-27b on the card (window 16, a global layer every
+    2nd; 40 tokens, so the local layer's window binds): the prefill step
+    through the flash kernel, one launch a layer with the layer's own
+    window, against impl="reference" within 5e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(reduce(get_config("gemma3_27b")),
+                              sliding_window=16, global_every=2)
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (3, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = fa.flash_attention.launches
+    got = make_prefill_step(cfg, impl="kernel")(params, {"tokens": toks})
+    assert fa.flash_attention.launches - before == cfg.num_layers
+    want = make_prefill_step(cfg, impl="reference")(params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_fl_round_step_kernel_equals_plain_aggregation(deterministic,
+                                                       monkeypatch):
+    """Two rounds of `fl_round_step` over reduced mamba2-370m on 4 gaia
+    silos (the LLM trainer's round): through the `edge_aggregate` kernel,
+    one launch per leaf a round, bit-equal to the same rounds aggregated
+    by the plain version."""
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.fl import dpasgd
+    from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import tree_leaves
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import sgd
+
+    cuda = deterministic
+    cfg = reduce(get_config("mamba2-370m"))
+    net = train._sub_network(train.get_network("gaia"), 4)
+    plan, _ = dpasgd.make_round_schedule("multigraph", net, FEMNIST)
+    pt = {k: torch.as_tensor(getattr(plan, k), device=cuda)
+          for k in ("strong", "coeffs", "diag")}
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 4, 2, 33), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+
+    def loss_fn(p, batch):
+        return tf.loss_fn(p, cfg, batch)[0]
+
+    def run():
+        opt = sgd(3e-3, momentum=0.9)
+        params = train.initial_params(cfg, 0, cuda)
+        state = dpasgd.init_fl_state(params, opt, 4, plan.src)
+        losses = []
+        for k in range(2):
+            pk = k % plan.num_rounds_cycle
+            state, loss = dpasgd.fl_round_step(
+                state, {"tokens": toks[k, ..., :-1],
+                        "labels": toks[k, ..., 1:]},
+                plan.src, plan.dst, pt["strong"][pk], pt["coeffs"][pk],
+                pt["diag"][pk], loss_fn=loss_fn, opt=opt, local_updates=1)
+            losses.append(float(loss))
+        return state, losses
+
+    before = ops.edge_aggregate.launches
+    kernel, kl = run()
+    leaves = len(tree_leaves(kernel.silo_params))
+    assert ops.edge_aggregate.launches - before == 2 * leaves
+    monkeypatch.setattr(dpasgd, "edge_aggregate", edge_aggregate_ref)
+    plain, pl = run()
+    assert kl == pl
+    for a, b in zip(tree_leaves(kernel.silo_params),
+                    tree_leaves(plain.silo_params)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(kernel.buffers), tree_leaves(plain.buffers)):
+        assert torch.equal(a, b)

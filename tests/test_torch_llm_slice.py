@@ -338,17 +338,55 @@ def test_init_params_distribution_and_layout():
 @pytest.mark.parametrize("arch", ["granite_moe_1b", "paligemma_3b",
                                   "musicgen_large"])
 def test_other_families_raise(arch):
-    cfg = pconfigs.reduce(pconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptf.init_params(cfg, torch.Generator(), device="cpu")
+    """The moe, vlm and audio families build with the reference's leaves
+    (names, shapes, types), and each raises for what it cannot take: an
+    unknown MoE dispatch, or a synthetic prefix for a model without a
+    frontend."""
+    from repro.models import frontends as rfe
+    from repro_torch.models import frontends as pfe
+    rcfg, cfg = _cfgs(arch)
+    params = ptf.init_params(cfg, torch.Generator(), device="cpu")
+    shapes = jax.eval_shape(lambda k: rtf.init_params(rcfg, k),
+                            jax.random.PRNGKey(0))
+    got = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+           for k, v in _flat(params).items()}
+    want = {k: (tuple(v.shape), v.dtype.name)
+            for k, v in _flat(shapes).items()}
+    assert got == want
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    if cfg.family == "moe":
+        with pytest.raises(ValueError, match="unknown moe impl"):
+            ptf.forward(params, cfg, toks, moe_impl="pallas")
+    else:
+        assert pfe.prefix_shape(cfg, 3) == rfe.prefix_shape(rcfg, 3)
+        bare = dataclasses.replace(cfg, frontend="none")
+        with pytest.raises(ValueError, match="has no frontend"):
+            pfe.synthetic_prefix(bare, 1, device="cpu")
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def test_mixed_window_stack_raises():
-    _, pcfg = _cfgs("gemma3_27b")
-    params = ptf.init_params(dataclasses.replace(pcfg, global_every=0),
-                             torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="_dyn_window_block"):
-        ptf.forward(params, pcfg, torch.zeros(1, 4, dtype=torch.long))
+    """gemma3's mixed local/global stack (window 16, a global layer every
+    2nd) runs forward under every impl, within 5e-4 of the reference's,
+    each layer with its own window; an unknown impl raises."""
+    rcfg, pcfg, rparams, pparams = _setup("gemma3_27b", seed=2)
+    assert list(ptf.layer_windows(pcfg)) == [16, 0]
+    toks = _tokens(pcfg, (2, 40), seed=5)
+    want, _ = rtf.forward(rparams, rcfg, jnp.asarray(toks), impl="reference")
+    for impl in ("reference", "chunked", "kernel"):
+        got, _ = ptf.forward(pparams, pcfg, torch.from_numpy(toks), impl=impl)
+        F32(_np(got), _np(want), impl)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        ptf.forward(pparams, pcfg, torch.from_numpy(toks), impl="pallas")
 
 
 def test_unknown_impl_raises(yi):

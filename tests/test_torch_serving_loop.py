@@ -281,24 +281,67 @@ def test_cli_serves_a_checkpoint_end_to_end(ckpt_dir, sweeps, tmp_path):
     assert not (tmp_path / "BENCH_serving.json").exists()
 
 
+def test_cli_trains_then_serves_by_default(tmp_path, capsys):
+    """With no --skip-train the CLI trains first (`run_reduced_fl` at the
+    reference's defaults: mamba2-370m reduced, 6 gaia silos, the
+    multigraph, 6 rounds, t 2), checkpoints into --ckpt-dir and serves
+    the result; its bench validates."""
+    from repro_torch.serving.__main__ import main
+    bench, d = tmp_path / "BENCH_torch_serving.json", tmp_path / "ckpt"
+    assert main(["--ckpt-dir", str(d), "--loads", "30", "--duration-ms",
+                 "300", "--bench", str(bench), "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert set(out) == {"ckpt_dir", "train", "regions", "ckpt_step",
+                        "serve", "bench"}
+    train = out["train"]
+    assert (train["arch"], train["topology"], train["silos"]) == (
+        "mamba2-370m", "multigraph", 6)
+    assert train["ckpt_steps"] == [6] and out["ckpt_step"] == 6
+    assert np.isfinite([train["loss_first"], train["loss_last"]]).all()
+    assert sum(len(v) for v in out["regions"].values()) == 6
+    assert validate_bench_rows(json.loads(bench.read_text())) == []
+    assert load_fl_checkpoint(str(d)).meta["network"] == "gaia"
+
+
 @pytest.mark.parametrize("args", [
-    (), ("--skip-train", "--mesh", "2"), ("--skip-train", "--lora-rank", "4")],
-    ids=["train", "mesh", "lora"])
+    ("--mesh", "2"), ("--skip-train", "--mesh", "2"),
+    ("--skip-train", "--lora-rank", "4")], ids=["train", "mesh", "lora"])
 def test_cli_refuses_to_train(ckpt_dir, tmp_path, args):
+    """The mesh runtime and LoRA training are not ported: --mesh and
+    --lora-rank refuse before anything runs, on the training path and
+    with --skip-train."""
     r = _cli(*args, "--ckpt-dir", ckpt_dir, "--device", "cpu", cwd=tmp_path)
     assert r.returncode == 2
-    assert "queue 1 #7" in r.stderr and not r.stdout
+    assert "queue 1 #6" in r.stderr and not r.stdout
 
 
-@pytest.mark.parametrize("flag", ["--arch", "--network", "--topology",
-                                  "--silos", "--rounds", "--t",
-                                  "--ckpt-every"])
-def test_cli_rejects_the_training_flags(ckpt_dir, flag, capsys):
-    """The reference's training flags have no effect while training is
-    not ported: argparse rejects them instead of ignoring them."""
+@pytest.mark.parametrize("flag,value,field", [
+    ("--arch", "yi-9b", "arch"), ("--network", "geant", "network"),
+    ("--topology", "ring", "topology"), ("--silos", "5", "silos"),
+    ("--rounds", "9", "rounds"), ("--t", "3", "t"),
+    ("--ckpt-every", "4", "ckpt_every")],
+    ids=["--arch", "--network", "--topology", "--silos", "--rounds", "--t",
+         "--ckpt-every"])
+def test_cli_rejects_the_training_flags(ckpt_dir, flag, value, field,
+                                        monkeypatch, capsys):
+    """Each of the reference's training flags reaches the `TrainConfig`
+    that the CLI trains with (`run_reduced_fl` is captured here, and the
+    CLI then serves ``ckpt_dir``); `--t` is not taken for `--trace`."""
+    from repro_torch.launch import train
     from repro_torch.serving.__main__ import main
-    with pytest.raises(SystemExit) as exc:
-        main(["--skip-train", "--ckpt-dir", ckpt_dir, flag, "2", "--device",
-              "cpu"])
-    assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    seen = []
+
+    def capture(cfg, device=None):
+        seen.append((cfg, device))
+        return {"arch": cfg.arch, "topology": cfg.topology,
+                "silos": cfg.silos, "loss_first": 0.0, "loss_last": 0.0,
+                "train_seconds": 0.0, "ckpt_steps": [3]}
+
+    monkeypatch.setattr(train, "run_reduced_fl", capture)
+    assert main(["--ckpt-dir", ckpt_dir, flag, value, "--loads", "20",
+                 "--duration-ms", "100", "--device", "cpu"]) == 0
+    (cfg, device), = seen
+    assert device == "cpu" and cfg.ckpt_dir == ckpt_dir
+    typ = type(getattr(train.TrainConfig(), field))
+    assert getattr(cfg, field) == typ(value)
+    assert json.loads(capsys.readouterr().out)["ckpt_step"] == 3
