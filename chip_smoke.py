@@ -128,7 +128,8 @@ Phases, each printing one JSON line:
    32, B 4, S 64) against its plain version. (d) `python -m
    repro_torch.serving --skip-train` on that checkpoint (exit 0),
    `python -m repro_torch.obs validate` of its bench and trace (exit
-   0), and the CLI with --mesh (refused, naming queue 1 #6);
+   0), and the CLI with --mesh 2 --lora-rank 4 (trains LoRA deltas on
+   two stacked shards, then serves its `lora_delta` checkpoint: exit 0);
 16. llm_families (no deterministic algorithms): granite-moe-1b-a400m,
    paligemma-3b, musicgen-large and gemma3-27b at full width and depth,
    bf16, random weights drawn on the card from seed 0, one model at a
@@ -199,18 +200,42 @@ Phases, each printing one JSON line:
    time of a whole run per round (set-up included) for plain, hooked,
    hooked, plain runs, the hooked run's steady chunk from its trace, the
    checkpoint's write time and bytes;
-21. run_fl_models (run last with the next phase): the same as 4 for the
+21. fl_mesh (deterministic algorithms on for (a) and (b)): the
+   mesh-sharded runtime and LoRA deltas. (a) `run_fl` for FEMNIST on
+   gaia at full width (batch 32, momentum 0.9, 30 rounds) on the flat
+   runtime and on 1, 2, 4 and 8 stacked shards (`mesh=D`) with both
+   gossip backends: every mesh run bit-equal to the flat run (losses,
+   accuracies, final rows, buffers and momentum), its simulated clock
+   equal, D `edge_aggregate` launches a round; the gather-and-aggregate
+   stage alone bit-equal on identical random inputs with NaN in every
+   pad row and pad edge buffer; silo 0's gradient by silos batched; ms a
+   round, `fabric_bytes` and the shard axis's bytes a round of each.
+   (e) `run_fl(mesh="auto")` in a one-rank NCCL process group
+   (`GroupShards` with CUDA tensors), bit-equal to one stacked shard.
+   (b) every shard's `edge_aggregate` on its padded block at D = 4,
+   bit-equal to the flat aggregate's rows with NaN in its pad rows; one
+   shard timed beside its plain version, `addmm` and the bound of its
+   real edges (the `kernels` row with `path`). (c) `run_reduced_fl(mesh=2,
+   lora_rank=4)` at the CLI's defaults on the card (60 launches) and on
+   the host from the same start: losses within LORA_LOSS_RTOL; its
+   `lora_delta` checkpoint served by `RegionalFleet` on the card, each
+   region's variant `apply_delta` of its mean delta bit for bit, the
+   served tokens equal to those of a `full` twin of those variants. (d)
+   LoRA rank 8 over mamba2-370m at full width and depth on 2 stacked
+   shards, 4 gaia silos, the first 4 rounds of the cycle: T_lora, ms a
+   round, peak memory, finite losses;
+22. run_fl_models (run last with the next phase): the same as 4 for the
    Sent140 LSTM and the iNaturalist ResNet (gaia, multigraph, batch 32,
    lr 0.05, 30 rounds), then one steady-state cycle of each, timed and
    profiled as in 5;
-22. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
+23. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
    a round, the plain aggregation bit-equal): star, mst, dmbst, ring,
    matcha and matcha_plus on gaia; the multigraph on geant, exodus and
    ebone (overlays from the blossom matching); the multigraph with
    Algorithm 1's multiplicity vector (which must train exactly as the
    default run) and another; two silos removed, randomly and by
    inefficiency;
-23. design_loop (run last, deterministic algorithms on): the
+24. design_loop (run last, deterministic algorithms on): the
    time-to-accuracy evaluator and the paper's tables.
    `evaluate_frontier` on gaia / femnist at its defaults (60 rounds,
    batch 16, 64 samples a silo) over Algorithm 1's t = 5 vector, the
@@ -228,7 +253,7 @@ Phases, each printing one JSON line:
    total). One drift trace by `python -m repro_torch.obs trace`, checked
    by `validate`. The tables' and scenarios' times and `tta_s` are
    simulated seconds of the paper's network model, not the card's;
-24. design_search (last, deterministic algorithms on): the design search
+25. design_search (last, deterministic algorithms on): the design search
    and the fault controller. (a) The paper's whole grid (105 cells, 15
    on the recurrence axis, 6,400 rounds) by `TimingGrid.reports` on the
    device grid (`backend="torch"`) and on the host, equal report for
@@ -888,6 +913,541 @@ def phase_run_fl_surface(torch, ctx):
              "launches", "wall_s", "ms_per_round", "mean_cycle_ms",
              "total_time_s", "round_losses", "nondeterministic_warnings")},
          cycle_metrics=cycle)
+
+
+# fl_mesh: the mesh-sharded runtime (`fl/mesh.py`) and LoRA deltas
+# (`fl/lora.py`). MESH_FL is the paper's FEMNIST run at full width.
+MESH_FL = dict(dataset="femnist", network="gaia", topology="multigraph",
+               rounds=ROUNDS, eval_every=15, momentum=0.9)
+MESH_SHARDS = (1, 2, 4, 8)
+MESH_BACKENDS = ("halo", "all_gather")
+#: the stacked shard count whose shard-local kernel makes the `kernels` row
+MESH_ROW_SHARDS = 4
+#: run_reduced_fl with LoRA (the CLI's defaults otherwise), card vs host
+LORA_TRAIN = dict(mesh=2, lora_rank=4)
+LORA_LOSS_RTOL = 1e-4
+#: LoRA at full width: mamba2-370m, 4 gaia silos, 2 shards; a warm-up
+#: call of the cycle function over the first `warm_rounds` rounds, then
+#: the whole 60-round multigraph cycle in one timed call
+LORA_FULL = dict(arch="mamba2-370m", silos=4, rank=8, seq_len=32,
+                 batch_size=4, mesh=2, lr=3e-3, warm_rounds=4)
+
+
+def _captured_train(torch, cfg) -> dict:
+    """`train(cfg)` on the card with the launch count zeroed just before
+    and read just after, its cycle function wrapped to keep the last
+    state and to time each call (synchronised): the result, the final
+    state in the single-device layout (`gather_flat_state` for a mesh
+    run), the runtime, the launches, the shard axis's bytes and the ms a
+    round of the steady calls (every call but the first)."""
+    from repro_torch.fl import mesh as flmesh
+    from repro_torch.fl import runtime as flrt
+    from repro_torch.fl import train
+    from repro_torch.kernels.gossip_combine import ops
+
+    make, seen = flrt.make_cycle_fn, {"secs": [], "rounds": []}
+
+    def wrapped(rt, **kw):
+        cycle = make(rt, **kw)
+        seen["rt"] = rt
+
+        def run(state, batches, strong, coeffs, diag):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cycle(state, batches, strong, coeffs, diag)
+            torch.cuda.synchronize()
+            seen["secs"].append(time.perf_counter() - t0)
+            seen["rounds"].append(strong.shape[0])
+            seen["state"] = out[0]
+            return out
+
+        return run
+
+    flrt.make_cycle_fn = wrapped
+    try:
+        ops.edge_aggregate.launches = 0
+        res = train(cfg, device="cuda")
+        launches = ops.edge_aggregate.launches
+    finally:
+        flrt.make_cycle_fn = make
+    rt, state = seen["rt"], seen["state"]
+    moved = None
+    if isinstance(rt, flmesh.MeshRuntime):
+        moved = rt.axis.bytes_moved
+        state = flmesh.gather_flat_state(rt, state)
+    return dict(res=res, state=state, rt=rt, launches=launches,
+                bytes_moved=moved,
+                ms_per_round=1e3 * sum(seen["secs"][1:])
+                / sum(seen["rounds"][1:]))
+
+
+def _state_diff(torch, a, b) -> dict:
+    """Largest |a - b| of the rows, buffers and momentum of two flat
+    states, each over the largest |b|; 0.0 where bit-equal."""
+    out = {}
+    for name, x, y in (("w", a.w, b.w), ("buffers", a.buffers, b.buffers),
+                       ("mu", a.opt_state["mu"], b.opt_state["mu"])):
+        out[name] = 0.0 if torch.equal(x, y) else float(
+            (x - y).abs().max() / y.abs().max())
+    return out
+
+
+def _rel(a, b) -> float:
+    """Largest |a - b| over the largest |b| of two lists of numbers."""
+    return max(abs(x - y) for x, y in zip(a, b)) / max(abs(y) for y in b)
+
+
+def _mesh_stage(torch, rt, d: int, backend: str) -> bool:
+    """The gather-and-aggregate stage alone, on identical inputs: one
+    round of the flat and of the mesh cycle from the same random rows and
+    buffers at the run's width, under a loss whose gradient is exactly 0
+    (local SGD leaves the rows as they are); the mesh's pad rows and pad
+    edge buffers hold NaN. True when the mesh's gathered rows and buffers
+    equal the flat cycle's bit for bit (no pad is ever read)."""
+    import dataclasses
+    from repro_torch.fl import flat as flatmod
+    from repro_torch.fl import mesh as flmesh
+    from repro_torch.fl import runtime as flrt
+    from repro_torch.optim import flat_sgd
+
+    n, t = rt.num_silos, rt.spec.size
+    rt = dataclasses.replace(rt, spec=flatmod.make_flat_spec(
+        {"w": torch.empty(t, device="meta")}))
+    loss = lambda p, b: torch.sum(p["w"] * b["t"])  # its gradient: b["t"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w = torch.randn((n, t), generator=gen, device="cuda")
+    buf = torch.randn((len(rt.dst_sorted), t), generator=gen, device="cuda")
+    opt = flat_sgd(0.05, momentum=0.9)
+    batches = {"t": torch.zeros((1, 1, n, 1), device="cuda")}
+    k = 1 % rt.num_rounds_cycle
+    plan = [torch.as_tensor(x[k:k + 1], device="cuda")
+            for x in (rt.strong, rt.coeffs, rt.diag)]
+    flat, _ = flrt.make_cycle_fn(rt, loss_fn=loss, opt=opt)(
+        flrt.FlatFLState(w, opt.init(w), buf), batches, *plan)
+    mrt = flmesh.make_mesh_runtime(rt, d, device="cuda")
+    nan = torch.full((1, t), float("nan"), device="cuda")
+    wp = torch.cat([w, nan.expand(mrt.mspec.rows_padded - n, t)])
+    bp = torch.cat([buf, nan])[torch.as_tensor(mrt.edge_perm,
+                                               device="cuda")]
+    st, _ = flrt.make_cycle_fn(mrt, loss_fn=loss, opt=opt, gossip=backend)(
+        flrt.FlatFLState(wp, opt.init(wp), bp), batches, *plan)
+    got = flmesh.gather_flat_state(mrt, st)
+    return torch.equal(got.w, flat.w) and torch.equal(got.buffers,
+                                                      flat.buffers)
+
+
+def _silo_grad_by_batch(torch, cfg, sizes) -> dict:
+    """Silo 0's FEMNIST gradient when `torch.func.vmap` batches m silos
+    in one call, against the N silos of the flat runtime, on the run's
+    first batch (rows past N retrain silo 0's batch, as the mesh's pad
+    rows do): for each m of ``sizes``, the largest |difference| over the
+    largest |value|; 0.0 where bit-equal."""
+    import numpy as np
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl import flat as flatmod
+    from repro_torch.fl.trainer import _sample_round
+    from repro_torch.models.small import SMALL_MODELS
+    from repro_torch.networks.registry import get_network
+
+    n = get_network(cfg.network).num_silos
+    spec = SMALL_MODELS["femnist_cnn"]
+    params = spec.init(torch.Generator().manual_seed(cfg.seed))
+    fs = flatmod.make_flat_spec(params)
+    w0 = flatmod.ravel(fs, params).cuda()
+    data = make_federated_dataset(cfg.dataset, n,
+                                  samples_per_silo=cfg.samples_per_silo,
+                                  alpha=cfg.alpha, seed=cfg.seed)
+    xs, ys = _sample_round(data, n, cfg, np.random.default_rng(cfg.seed + 1))
+    batch = {"x": torch.as_tensor(xs[0], device="cuda"),
+             "y": torch.as_tensor(ys[0], dtype=torch.long, device="cuda")}
+    grads = torch.func.vmap(torch.func.grad(spec.loss))
+
+    def silo0(m):
+        idx = torch.as_tensor([i if i < n else 0 for i in range(m)],
+                              device="cuda")
+        g = grads(flatmod.unravel_stacked(fs, w0.repeat(m, 1)),
+                  {k: v[idx] for k, v in batch.items()})
+        return flatmod.ravel_stacked(fs, g)[0]
+
+    ref = silo0(n)
+    out = {}
+    for m in sorted(set(sizes)):
+        g = silo0(m)
+        out[m] = 0.0 if torch.equal(g, ref) else float(
+            (g - ref).abs().max() / ref.abs().max())
+    return out
+
+
+def _mesh_kernel_row(torch, ctx, rt, d: int) -> dict:
+    """One shard's `edge_aggregate` on its padded block at the run's
+    width, D = ``d``: every shard's output against the same rows of the
+    flat aggregate, bit for bit, with NaN in the pad edges' buffer rows
+    (so a pad that were read would show); then the shard with the most
+    pad rows timed on its block (pads zeroed), beside its plain version,
+    `addmm` and the bound of what it reads: its real edges only."""
+    from repro_torch.fl import mesh as flmesh
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+
+    n, t = rt.num_silos, rt.spec.size
+    mrt = flmesh.make_mesh_runtime(rt, d, device="cuda")
+    per, e_per = mrt.per_rows, mrt.edges_per_shard
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    w = torch.randn((mrt.mspec.rows_padded, t), generator=gen, device="cuda")
+    buf = torch.randn((len(rt.dst_sorted), t), generator=gen, device="cuda")
+    k = 1 % rt.num_rounds_cycle
+    dev = lambda x: torch.as_tensor(x, device="cuda")
+    coeffs, diag = dev(rt.coeffs[k]), dev(rt.diag[k])
+    want = ops.edge_aggregate(w[:n], buf, coeffs, dev(rt.row_ptr), diag)
+    perm = dev(mrt.edge_perm)
+    bp = torch.cat([buf, torch.full((1, t), float("nan"),
+                                    device="cuda")])[perm]
+    cp = torch.cat([coeffs, coeffs.new_zeros(1)])[perm]
+    dp = torch.cat([diag, diag.new_ones(mrt.mspec.rows_padded - n)])
+    blocks = []
+    for p in range(d):
+        args = (w[p * per:(p + 1) * per], bp[p * e_per:(p + 1) * e_per],
+                cp[p * e_per:(p + 1) * e_per], dev(mrt.shard_row_ptr(p)),
+                dp[p * per:(p + 1) * per])
+        got = ops.edge_aggregate(*args)
+        real = max(0, min(per, n - p * per))
+        if not torch.equal(got[:real], want[p * per:p * per + real]):
+            raise AssertionError(f"mesh: shard {p} of {d}'s edge_aggregate "
+                                 "differs from the flat aggregate's rows")
+        blocks.append(args)
+    p = max(range(d), key=lambda q: (e_per - mrt.edge_counts[q],
+                                     mrt.edge_counts[q]))
+    c = int(mrt.edge_counts[p])
+    w_p, b_p, c_p, rp_p, d_p = blocks[p]
+    b_p = torch.nan_to_num(b_p, nan=0.0)
+    args = (w_p, b_p, c_p, rp_p, d_p)
+    ms = cuda_ms(torch, lambda: ops.edge_aggregate(*args), 50)
+    dst = mrt.dst_local[p, :c]
+    real = _time_edge_aggregate(torch, ctx, (w_p, b_p[:c], c_p[:c], rp_p,
+                                             d_p), dst, 50)
+    plain = edge_aggregate_ref(*args)
+    if not torch.equal(ops.edge_aggregate(*args), plain):
+        raise AssertionError("mesh: the shard's kernel and plain version "
+                             "differ on its padded block")
+    return dict(shards=d, shard=p, per=per, e_per=e_per, real_edges=c,
+                t=t, ms=ms, real_edges_ms=real["ms"],
+                **{k: real[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "max_abs_err")})
+
+
+def _mesh_femnist(torch, ctx) -> dict:
+    """(a) and (e): `run_fl` on FEMNIST at full width over the flat
+    runtime, then on MESH_SHARDS stacked shards with both backends, each
+    held against the flat run: simulated seconds equal, D launches a
+    round, and bit-equal losses, accuracies, rows, buffers and momentum;
+    the gather-and-aggregate stage alone bit-equal on identical inputs
+    for every case. Beside them, silo 0's gradient by the number of silos
+    one `vmap` call batches (`_silo_grad_by_batch`): cuDNN picks another
+    grouped-convolution algorithm for 2 or 3 silos than for 11, which is
+    why the stacked binding batches all its shards' silos in one call
+    (11, 12 or 16 of them). Then `run_fl(mesh="auto")` in a one-rank NCCL
+    group (`GroupShards` with CUDA tensors), bit-equal to D = 1."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.fl import FLConfig
+    from repro_torch.fl.gossip import fabric_rows_per_round
+    from repro_torch.launch.mesh import GroupShards
+
+    cfg = FLConfig(**MESH_FL)
+    flat = _captured_train(torch, cfg)
+    f_res, t = flat["res"], flat["rt"].spec.size
+    if flat["launches"] != ROUNDS:
+        raise AssertionError(f"mesh: the flat run launched "
+                             f"{flat['launches']} times")
+    runs, failures = {}, []
+    for d in MESH_SHARDS:
+        for backend in MESH_BACKENDS:
+            r = _captured_train(torch, FLConfig(**MESH_FL, mesh=d,
+                                                gossip=backend))
+            res, mrt = r["res"], r["rt"]
+            diff = _state_diff(torch, r["state"], flat["state"])
+            rows = fabric_rows_per_round(
+                backend, halo_rows=mrt.halo.halo_rows, num_shards=d,
+                rows_padded=mrt.mspec.rows_padded)
+            runs[f"{d}/{backend}"] = row = dict(
+                shards=d, backend=backend, launches=r["launches"],
+                silos_batched=mrt.mspec.rows_padded,
+                ms_per_round=r["ms_per_round"],
+                fabric_bytes_per_round=rows * t * 4,
+                bytes_moved_per_round=r["bytes_moved"] / ROUNDS,
+                losses_equal=res.round_losses == f_res.round_losses,
+                accs_equal=res.eval_accs == f_res.eval_accs,
+                loss_rel=_rel(res.round_losses, f_res.round_losses),
+                state_rel=diff,
+                stage_bit_equal=_mesh_stage(torch, flat["rt"], d, backend))
+            row["bit_equal"] = (row["losses_equal"] and row["accs_equal"]
+                                and not any(diff.values()))
+            if r["launches"] != d * ROUNDS:
+                failures.append(f"{d}/{backend}: {r['launches']} launches")
+            if (res.cycle_times_ms != f_res.cycle_times_ms
+                    or res.total_time_s != f_res.total_time_s):
+                failures.append(f"{d}/{backend}: simulated clock differs")
+            if not row["stage_bit_equal"]:
+                failures.append(f"{d}/{backend}: the gather-and-aggregate "
+                                "stage differs on identical inputs")
+            if not all(math.isfinite(x) for x in res.round_losses):
+                failures.append(f"{d}/{backend}: losses "
+                                f"{res.round_losses}")
+            if d == MESH_ROW_SHARDS and backend == "halo":
+                ctx["launches"]["edge_aggregate_mesh"] = r["launches"]
+            del r
+        fab = {b: runs[f"{d}/{b}"]["fabric_bytes_per_round"]
+               for b in MESH_BACKENDS}
+        if fab["halo"] > fab["all_gather"]:
+            failures.append(f"D={d}: halo moves more than all_gather {fab}")
+        torch.cuda.empty_cache()
+    batched = [v["silos_batched"] for v in runs.values()]
+    grad_rel = _silo_grad_by_batch(torch, cfg, [2, 3, *batched])
+    inexact = [k for k, v in runs.items() if not v["bit_equal"]]
+    if inexact:
+        failures.append(f"runs {inexact} not bit-equal to the flat run; "
+                        "silo 0's gradient by silos batched: "
+                        f"{grad_rel}")
+    # (e) the group binding with CUDA tensors: one NCCL rank
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        group = _captured_train(torch, FLConfig(**MESH_FL, mesh="auto"))
+    finally:
+        dist.destroy_process_group()
+    one = _captured_train(torch, FLConfig(**MESH_FL, mesh=1))
+    nccl = dict(axis=type(group["rt"].axis).__name__,
+                launches=group["launches"],
+                ms_per_round=group["ms_per_round"],
+                bit_equal_to_one_stacked_shard=(
+                    group["res"].round_losses == one["res"].round_losses
+                    and group["res"].eval_accs == one["res"].eval_accs
+                    and not any(_state_diff(torch, group["state"],
+                                            one["state"]).values())))
+    if not isinstance(group["rt"].axis, GroupShards) \
+            or not nccl["bit_equal_to_one_stacked_shard"]:
+        failures.append(f"one-rank NCCL group: {nccl}")
+    return dict(flat=dict(ms_per_round=flat["ms_per_round"],
+                          launches=flat["launches"],
+                          total_time_s=f_res.total_time_s,
+                          round_losses=f_res.round_losses,
+                          eval_accs=f_res.eval_accs),
+                runs=runs, silo0_grad_rel_by_silos_batched=grad_rel,
+                not_bit_equal=inexact, nccl_one_rank=nccl,
+                failures=failures), flat["rt"]
+
+
+def _lora_serving(torch, ckpt_dir) -> dict:
+    """The `lora_delta` checkpoint served by `RegionalFleet` on the card:
+    each region's variant bit-equal to `apply_delta(lora_base, mean of
+    its delta rows)`, and the tokens of one load equal to those of a
+    fleet over a `full` twin checkpoint of those materialised variants
+    (float64 rows, so that the mean of a region's identical rows is
+    exact)."""
+    import numpy as np
+    from repro_torch.checkpoint import FLCheckpoint, load_fl_checkpoint
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.fl import flat as flatmod
+    from repro_torch.fl import lora
+    from repro_torch.launch.mesh import tree_leaves
+    from repro_torch.serving import RegionalFleet, TrafficConfig, sweep_loads
+
+    ckpt = load_fl_checkpoint(ckpt_dir)
+    meta = ckpt.meta
+    mcfg = reduce(get_config(meta["arch"]))
+    fleet = RegionalFleet.from_checkpoint(ckpt, max_slots=FLEET_SLOTS,
+                                          max_seq=FLEET_SEQ, device="cuda")
+    base = lora.lora_base(mcfg, int(meta["seed"]), "cuda")
+    dspec = flatmod.make_flat_spec(lora.delta_template(base, meta[
+        "lora_rank"]))
+    fspec = flatmod.make_flat_spec(base)
+    twin_w = np.zeros((ckpt.num_silos, fspec.size))
+    for reg in fleet.regions.values():
+        mean = torch.from_numpy(np.asarray(np.mean(
+            ckpt.w[reg.silo_indices], axis=0), np.float32)).cuda()
+        want = lora.apply_delta(base, flatmod.unravel(dspec, mean))
+        if not all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(reg.engine.params), tree_leaves(want))):
+            raise AssertionError(f"lora fleet: region {reg.name}'s variant "
+                                 "is not apply_delta of its mean delta")
+        twin_w[reg.silo_indices] = flatmod.ravel(fspec, want).cpu().numpy()
+    twin = RegionalFleet.from_checkpoint(
+        FLCheckpoint(step=ckpt.step, w=twin_w, meta=dict(
+            meta, params_kind="full", lora_rank=0)),
+        max_slots=FLEET_SLOTS, max_seq=FLEET_SEQ, device="cuda")
+    tokens = []
+    for f in (fleet, twin):
+        sweep_loads(f, TrafficConfig(**FLEET_TRAFFIC), [FLEET_LOADS[1]])
+        tokens.append([q.output for r in f.regions.values()
+                       for q in r.engine.completed])
+    if tokens[0] != tokens[1] or not tokens[0]:
+        raise AssertionError("lora fleet: its tokens differ from the full "
+                             "twin's")
+    return dict(regions={r: v.silo_indices for r, v in fleet.regions.items()},
+                requests=len(tokens[0]), tokens_equal_to_full_twin=True,
+                tokens=sum(map(len, tokens[0])), t_lora=dspec.size,
+                t_full=fspec.size)
+
+
+def _mesh_lora(torch, tmp: Path) -> dict:
+    """(c) `run_reduced_fl` with LORA_TRAIN at the CLI's defaults on the
+    card (launch count zeroed just before and read just after: D per
+    round) and on the host from the same start (the base and delta_0 are
+    host draws): losses within LORA_LOSS_RTOL relative, simulated seconds
+    equal; its checkpoint served (`_lora_serving`)."""
+    import dataclasses
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.launch import train
+
+    cfg = train.TrainConfig(**LORA_TRAIN, ckpt_dir=str(tmp / "lora"))
+    ops.edge_aggregate.launches = 0
+    t0 = time.perf_counter()
+    card = train.run_reduced_fl(cfg)
+    card_s = time.perf_counter() - t0
+    launches = ops.edge_aggregate.launches
+    t0 = time.perf_counter()
+    cpu = train.run_reduced_fl(dataclasses.replace(cfg, ckpt_dir=None),
+                               device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                  cpu["losses"]))
+    if launches != LORA_TRAIN["mesh"] * cfg.rounds:
+        raise AssertionError(f"lora run: {launches} launches, not "
+                             f"{LORA_TRAIN['mesh']} x {cfg.rounds}")
+    if _not_finite(card["losses"]) or rel > LORA_LOSS_RTOL:
+        raise AssertionError(f"lora run: card losses {rel} relative from "
+                             f"the host's (limit {LORA_LOSS_RTOL})")
+    for k in ("sim_mean_cycle_ms", "sim_total_time_s"):
+        if card[k] != cpu[k]:
+            raise AssertionError(f"lora run: {k} differs on card and host")
+    serving = _lora_serving(torch, cfg.ckpt_dir)
+    return dict(config=dict(LORA_TRAIN, arch=cfg.arch, silos=cfg.silos,
+                            rounds=cfg.rounds), launches=launches,
+                card_s=card_s, cpu_s=cpu_s, loss_max_rel_card_vs_cpu=rel,
+                loss_rtol=LORA_LOSS_RTOL, losses_card=card["losses"],
+                sim_total_time_s=card["sim_total_time_s"], serving=serving)
+
+
+def _mesh_lora_full(torch) -> dict:
+    """(d) LoRA deltas (rank LORA_FULL["rank"]) over mamba2-370m at full
+    width and depth (bf16 base, random weights drawn on the card), 4 gaia
+    silos on 2 stacked shards, on seeded random tokens: a warm-up call
+    over the first LORA_FULL["warm_rounds"] rounds of the multigraph
+    cycle, then the whole cycle in one call, timed (synchronised): T_lora,
+    ms a round of the whole cycle (and of the warm-up call, which
+    includes first-call allocations), peak memory, finite losses,
+    launches = shards x rounds in each call."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.delay import WORKLOADS
+    from repro_torch.fl import flat as flatmod
+    from repro_torch.fl import lora
+    from repro_torch.fl import mesh as flmesh
+    from repro_torch.fl import runtime as flrt
+    from repro_torch.fl.dpasgd import make_round_schedule
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.launch.mesh import tree_leaves
+    from repro_torch.launch.train import _sub_network
+    from repro_torch.models import transformer as tf
+    from repro_torch.networks.registry import get_network
+    from repro_torch.optim import flat_sgd
+
+    c = LORA_FULL
+    mcfg = get_config(c["arch"])
+    net = _sub_network(get_network("gaia"), c["silos"])
+    n = net.num_silos
+    plan, _ = make_round_schedule("multigraph", net, WORKLOADS["femnist"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = tf.init_params(mcfg, torch.Generator(device="cuda").manual_seed(1),
+                          device="cuda")
+    t_full = sum(x.numel() for x in tree_leaves(base))
+    adapter = lora.make_lora_adapter(base, c["rank"])
+    delta0 = adapter.init(torch.Generator().manual_seed(0))
+    rt = flrt.make_flat_runtime(plan, delta0, n)
+    mrt = flmesh.make_mesh_runtime(rt, c["mesh"], device="cuda")
+    opt = flat_sgd(c["lr"], momentum=0.9)
+    state = flmesh.init_mesh_state(flatmod.ravel(rt.spec, delta0), opt, mrt)
+    cycle = flrt.make_cycle_fn(
+        mrt, loss_fn=adapter.wrap_loss(
+            lambda p, b: tf.loss_fn(p, mcfg, b)[0]), opt=opt)
+    # (`make_lm_dataset` builds a vocab x vocab bigram table: 50,280^2)
+    rng = np.random.default_rng(0)
+
+    def timed_call(state, r):
+        """One cycle-function call over the plan's first r rounds:
+        (state, losses, seconds, launches)."""
+        toks = torch.as_tensor(rng.integers(
+            0, mcfg.vocab_size, (r, n, c["batch_size"], c["seq_len"] + 1)),
+            device="cuda")
+        batches = {"tokens": toks[:, None, :, :, :-1],
+                   "labels": toks[:, None, :, :, 1:]}
+        args = [torch.as_tensor(x[:r], device="cuda")
+                for x in (rt.strong, rt.coeffs, rt.diag)]
+        ops.edge_aggregate.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = cycle(state, batches, *args)
+        losses = losses.tolist()
+        secs = time.perf_counter() - t0
+        launches = ops.edge_aggregate.launches
+        if _not_finite(losses) or launches != c["mesh"] * r:
+            raise AssertionError(f"lora at full width: losses {losses}, "
+                                 f"{launches} launches over {r} rounds")
+        return state, losses, secs, launches
+
+    warm = c["warm_rounds"]
+    state, _, warm_s, _ = timed_call(state, warm)
+    r = plan.num_rounds_cycle
+    state, losses, secs, launches = timed_call(state, r)
+    peak = torch.cuda.max_memory_allocated()
+    del base, adapter, state, cycle
+    torch.cuda.empty_cache()
+    return dict(config=c, cycle_rounds=r, t_lora=rt.spec.size,
+                t_full=t_full, t_lora_share=rt.spec.size / t_full,
+                launches=launches, cycle_s=secs, ms_per_round=1e3 * secs / r,
+                warm_up_ms_per_round=1e3 * warm_s / warm,
+                peak_memory_gb=peak / 1e9, losses_first_last=[losses[0],
+                                                              losses[-1]])
+
+
+def phase_fl_mesh(torch, ctx):
+    """The mesh-sharded runtime and LoRA deltas on the card: (a) and (e)
+    `_mesh_femnist` and (b) `_mesh_kernel_row` with deterministic
+    algorithms on; (c) `_mesh_lora` and (d) `_mesh_lora_full` without, as
+    the other LLM phases run. No profile. One line a part, its seconds in
+    it."""
+    import tempfile
+
+    _deterministic(torch)
+    t0 = time.perf_counter()
+    femnist, rt = _mesh_femnist(torch, ctx)
+    emit(phase="fl_mesh", part="femnist", nvidia_smi=ctx["smi"],
+         seconds=time.perf_counter() - t0, **femnist)
+    t1 = time.perf_counter()
+    row = _mesh_kernel_row(torch, ctx, rt, MESH_ROW_SHARDS)
+    ctx["edge_aggregate_mesh"] = row
+    emit(phase="fl_mesh", part="kernel_row", seconds=time.perf_counter() - t1,
+         **row)
+    torch.use_deterministic_algorithms(False)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lora = _mesh_lora(torch, Path(tmp))
+    emit(phase="fl_mesh", part="lora", seconds=time.perf_counter() - t1,
+         **lora)
+    t1 = time.perf_counter()
+    full = _mesh_lora_full(torch)
+    emit(phase="fl_mesh", part="lora_full", seconds=time.perf_counter() - t1,
+         nvidia_smi=ctx["smi"], **full)
+    failures = femnist["failures"]
+    emit(phase="fl_mesh", ok=not failures, seconds=time.perf_counter() - t0,
+         failures=failures)
+    if failures:
+        raise AssertionError(f"fl_mesh: {failures}")
 
 
 def phase_run_fl_models(torch, ctx):
@@ -3068,8 +3628,9 @@ def _fleet(torch, ctx, ckpt_dir) -> tuple:
 def _serving_cli(torch, tmp: Path) -> dict:
     """`python -m repro_torch.serving --skip-train` on the fleet's
     checkpoint (exit 0, every load drained), `python -m repro_torch.obs
-    validate` of its bench and trace (exit 0), and the CLI with --mesh
-    (refused, naming queue 1 #6)."""
+    validate` of its bench and trace (exit 0), and the CLI with --mesh 2
+    --lora-rank 4: trains LoRA deltas on two stacked shards, then serves
+    the `lora_delta` checkpoint it wrote (exit 0, every load drained)."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     bench, trace = tmp / "BENCH_torch_serving.json", tmp / "serve.json"
 
@@ -3090,16 +3651,27 @@ def _serving_cli(torch, tmp: Path) -> dict:
         raise AssertionError(f"serving CLI rows: {rows}")
     check, _ = run("repro_torch.obs", "validate", str(trace), "--bench",
                    str(bench))
-    refused, _ = run("repro_torch.serving", "--skip-train", "--ckpt-dir",
-                     str(tmp / "ckpt"), "--mesh", "2")
-    if check.returncode != 0 or refused.returncode == 0 \
-            or "queue 1 #6" not in refused.stderr:
+    lora, lora_s = run("repro_torch.serving", "--mesh", "2", "--lora-rank",
+                       "4", "--ckpt-dir", str(tmp / "lora"), "--loads", "20")
+    if check.returncode != 0 or lora.returncode != 0:
         raise AssertionError(f"validate exit {check.returncode} "
-                             f"({check.stdout[-500:]}), refusal exit "
-                             f"{refused.returncode} ({refused.stderr[-500:]})")
+                             f"({check.stdout[-500:]}), --mesh 2 --lora-rank "
+                             f"4 exit {lora.returncode} "
+                             f"({lora.stderr[-1000:]})")
+    lora_out = json.loads(lora.stdout)
+    meta = json.loads(subprocess.run(
+        [sys.executable, "-c", "import json; from repro_torch.checkpoint "
+         "import load_fl_checkpoint as l; print(json.dumps(l("
+         f"{str(tmp / 'lora')!r}).meta))"], env=env, capture_output=True,
+        text=True, timeout=300, check=True).stdout)
+    if meta.get("params_kind") != "lora_delta" or any(
+            s["completed"] != s["arrived"] for s in lora_out["serve"]):
+        raise AssertionError(f"--mesh 2 --lora-rank 4: {meta}, "
+                             f"{lora_out['serve']}")
     return dict(serve_exit=0, serve_s=serve_s, serve_rows=rows,
-                validate_exit=0, refused_exit=refused.returncode,
-                refused_message=refused.stderr.strip().splitlines()[-1])
+                validate_exit=0, mesh_lora_exit=0, mesh_lora_s=lora_s,
+                mesh_lora_train=lora_out["train"],
+                mesh_lora_serve=lora_out["serve"])
 
 
 def phase_serving(torch, ctx):
@@ -4092,7 +4664,8 @@ def main() -> int:
               phase_hybrid_decode, phase_serving, phase_llm_families,
               phase_llm_train, phase_gossip_combine,
               phase_ring_gossip,
-              phase_run_fl_surface, phase_run_fl_models, phase_topologies,
+              phase_run_fl_surface, phase_fl_mesh, phase_run_fl_models,
+              phase_topologies,
               phase_design_loop, phase_design_search]
     for phase in phases:
         try:
@@ -4126,6 +4699,15 @@ def main() -> int:
              path=f"legacy run_fl: one launch per leaf a round, {ROUNDS} "
                   "rounds at the main shape",
              launches=ctx["launches"]["edge_aggregate_legacy"]),
+        dict(_kernel_row(ctx, "edge_aggregate",
+                         "src/repro/kernels/gossip_combine/kernel.py:114"),
+             path=f"mesh: run_fl on {MESH_ROW_SHARDS} stacked shards, one "
+                  f"launch per shard a round, {ROUNDS} rounds; timed on one "
+                  "shard's padded block at the main width",
+             launches=ctx["launches"]["edge_aggregate_mesh"],
+             **{k: ctx["edge_aggregate_mesh"][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
         dict(_kernel_row(ctx, "edge_aggregate",
                          "src/repro/kernels/gossip_combine/kernel.py:114"),
              path="run_reduced_fl at the CLI's defaults: one launch per "

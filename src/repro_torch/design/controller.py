@@ -46,6 +46,7 @@ from repro_torch.faults import (DegradePolicy, FaultedSession, Scenario,
                                 get_scenario)
 from repro_torch.fl import dpasgd
 from repro_torch.fl import flat as flatmod
+from repro_torch.fl import mesh as flmesh
 from repro_torch.fl import runtime as flrt
 from repro_torch.fl.options import RuntimeOptions, adopt_runtime_options
 from repro_torch.fl.trainer import FLConfig, _DATASET_MODEL, _sample_round
@@ -88,9 +89,10 @@ class ControllerConfig:
     replan_generations: int = 2
     replan_pop: int = 8
     replan_backend: str = "numpy"
-    # Shared runtime knobs (fl/options.py). ``trace`` is ported; ``mesh``
-    # is not (the harness raises), and ``gossip`` is read by the mesh
-    # runtime only.
+    # Shared runtime knobs (fl/options.py): mesh sharding (fl/mesh.py),
+    # its gossip collective, trace. The live-swap contract is unchanged
+    # under mesh: swapped schedules are still new arguments to the one
+    # cycle function.
     options: RuntimeOptions | None = None
     mesh: object = None
     gossip: str = "halo"
@@ -153,9 +155,6 @@ class ControllerHarness:
     """
 
     def __init__(self, cfg: ControllerConfig, device=None):
-        if cfg.mesh is not None:
-            raise NotImplementedError("mesh= is not ported (ROADMAP queue "
-                                      "1 #6)")
         self.cfg = cfg
         self.device = dev = resolve_device(device)
         pin_fp32(dev)
@@ -179,9 +178,21 @@ class ControllerHarness:
         self.tplan0 = tplan0
         plan0, _, _ = dpasgd.multigraph_plan(self.net, tplan0)
         self.rt0 = flrt.make_flat_runtime(plan0, self._params0, n)
-        self._cycle_fn = flrt.make_cycle_fn(self.rt0, loss_fn=spec.loss,
-                                            opt=self._opt)
         self._w0 = flatmod.ravel(self.rt0.spec, self._params0).to(dev)
+        if cfg.mesh is not None:
+            mrt = flmesh.make_mesh_runtime(self.rt0, cfg.mesh, device=dev)
+            self._cycle_fn = flrt.make_cycle_fn(
+                mrt, loss_fn=spec.loss, opt=self._opt, gossip=cfg.gossip)
+            self._init_state = lambda: flmesh.init_mesh_state(
+                self._w0, self._opt, mrt)
+            # evaluate the single-device rows, as with mesh=None
+            self._get_w = lambda st: flmesh.gather_flat_state(mrt, st).w
+        else:
+            self._cycle_fn = flrt.make_cycle_fn(self.rt0, loss_fn=spec.loss,
+                                                opt=self._opt)
+            self._init_state = lambda: flrt.init_flat_state(
+                self._w0, self._opt, self.rt0)
+            self._get_w = lambda st: st.w
         self.density_floor = (cfg.density_slack
                               * strong_fraction(self.vec0) - 1e-12)
 
@@ -320,7 +331,7 @@ class ControllerHarness:
                                  record_obs=recorder is not None)
         assumed = tplan.d0.copy()
 
-        state = flrt.init_flat_state(self._w0, self._opt, self.rt0)
+        state = self._init_state()
         re = cfg.replan_every
         num_segments = cfg.rounds // re
         losses: list[float] = []
@@ -381,7 +392,7 @@ class ControllerHarness:
                             recorder.instant("swap", t_ms=sim_t,
                                              round=session.round,
                                              vector=list(vec))
-        acc = self._acc_fn(state.w)
+        acc = self._acc_fn(self._get_w(state))
         if auto_trace:
             write_trace(cfg.trace, recorder)
         return ControlledRun(

@@ -125,3 +125,52 @@ def unravel_stacked(spec: FlatSpec, flat: torch.Tensor) -> Params:
     return _tree(spec, [
         flat[:, off:off + math.prod(shape)].view((n,) + shape).to(dt)
         for shape, dt, off in zip(spec.shapes, spec.dtypes, spec.offsets)])
+
+
+# ---------------------------------------------------------------------------
+# the mesh layout (counterpart of `repro.fl.flat.MeshFlatSpec`)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshFlatSpec:
+    """FlatSpec + how its buffers split over a D-shard silo axis.
+
+    The (N, T) param/opt matrix splits into contiguous row blocks (shard
+    p owns silo rows [p*per, (p+1)*per), N padded up to `rows_padded` =
+    D*per) and the (2E, T) edge-buffer matrix by DESTINATION: each shard
+    owns the block of dst-sorted edge rows its silos aggregate into,
+    padded to `edges_padded` = D*e_per. Both pads sit at the end of each
+    shard's block, so every block has the same size; pad rows are inert
+    by construction (fl/mesh.py). A process holds the blocks of its local
+    shards (`local`), stacked in shard order.
+    """
+
+    spec: FlatSpec
+    num_shards: int
+    rows_padded: int      # Np = D * per
+    edges_padded: int     # E_pad = D * e_per
+    local: tuple[int, ...]  # this process's shards, consecutive
+
+    def local_rows(self, shape0: int) -> int | None:
+        """Rows per block of a local leaf whose leading axis is
+        ``shape0``: per or e_per for a split leaf, None for a replicated
+        one (e.g. the optimizer's step count)."""
+        k = len(self.local)
+        for total in (self.rows_padded, self.edges_padded):
+            if shape0 == total // self.num_shards * k:
+                return total // self.num_shards
+        return None
+
+    def split(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """A local (k*rows, ...) tensor -> its k local shards' blocks
+        (views)."""
+        rows = self.local_rows(x.shape[0])
+        if rows is None:
+            raise ValueError(f"MeshFlatSpec: leading axis {x.shape[0]} is "
+                             f"neither the rows' nor the edges'")
+        return [x[i * rows:(i + 1) * rows] for i in range(len(self.local))]
+
+    def join(self, blocks: list[torch.Tensor]) -> torch.Tensor:
+        """The local shards' blocks -> one local tensor in shard order."""
+        return blocks[0] if len(blocks) == 1 else torch.cat(blocks)

@@ -21,8 +21,14 @@ stacked in one process, or one silo per rank of a process group. Weak-
 edge staleness is carried by `buffers` (the last replicas received from
 the left and right neighbours), as in the reference.
 
-The mesh runtime's gathers (`csr_gather_all`, `csr_gather_halo`,
-`fabric_rows_per_round`) come with the port of `fl/mesh.py`.
+The mesh runtime (fl/mesh.py) generalizes these two lowerings from the
+ring overlay to ANY CSR edge structure: `csr_gather_all` is the
+all_gather backend and `csr_gather_halo` the ppermute backend. Both
+fetch, for each local shard, the (e_per, T) source rows of its block of
+dst-sorted edges over a shard axis (`launch/mesh.StackedShards` or
+`GroupShards`); they only index and copy, so every row a shard receives
+is bit for bit the flat runtime's ``w[src]``. Everything downstream of
+the fetch (buffer refresh and `edge_aggregate`) is shard-local.
 """
 
 from __future__ import annotations
@@ -135,3 +141,67 @@ def init_ring_buffers(params: Params) -> dict:
     """Stale buffers start as the silo's own weights."""
     return {"left": tree_map(torch.clone, params),
             "right": tree_map(torch.clone, params)}
+
+
+# ---------------------------------------------------------------------------
+# CSR cross-shard edge-source gather (the mesh runtime's collectives)
+# ---------------------------------------------------------------------------
+#
+# Shard p holds rows [p*per, (p+1)*per) of the global (Np, T) param matrix
+# and the contiguous block of dst-sorted edges whose destinations it owns.
+# Each backend takes the local shards' (per, T) blocks and returns, for
+# each, the (e_per, T) matrix of SOURCE rows of its edges. Index tables are
+# the (D, ...) tables of fl/mesh.py; each local shard reads its own row.
+
+
+def csr_gather_all(axis, w_blocks, src_global):
+    """all_gather backend: materialize the full (Np, T) matrix, then a
+    static row gather. Moves Np*T elements per shard however few edges
+    cross shard boundaries -- the baseline.
+
+    src_global: per local shard, the (e_per,) GLOBAL source row of each of
+    its edges (pad edges may point at any valid row).
+    """
+    full = axis.all_gather(w_blocks)
+    return [f[s] for f, s in zip(full, src_global)]
+
+
+def csr_gather_halo(axis, w_blocks, send_idx, perms, gather_idx):
+    """ppermute halo backend: move ONLY the rows that cross a shard
+    boundary. One exchange per active shard offset o: every shard q sends
+    its ``send_idx[k][q]`` rows to shard (q+o) % D at once, then each
+    shard picks its edges' rows out of the concat
+
+        [ my rows (per) | halo from offset o1 | halo from offset o2 | ... ]
+
+    by its static ``gather_idx`` row (derived once from the CSR structure,
+    fl/mesh.py). States whose strong edges stay within shards move fewer
+    bytes, as `gossip_ring_ppermute` does for the ring.
+
+    send_idx[k]: (D, H_k) LOCAL rows each shard contributes to offset k's
+    exchange; perms[k]: the offset's (src, dst) shard pairs; gather_idx:
+    per local shard, (e_per,) indices into its concat.
+    """
+    parts = [[w] for w in w_blocks]
+    for tbl, perm in zip(send_idx, perms):
+        for part, got in zip(parts, axis.ppermute(w_blocks, perm, tbl)):
+            part.append(got)
+    return [(p[0] if len(p) == 1 else torch.cat(p))[g]
+            for p, g in zip(parts, gather_idx)]
+
+
+def fabric_rows_per_round(backend: str, *, halo_rows: int, num_shards: int,
+                          rows_padded: int) -> int:
+    """Total param rows the gather backend moves across the fabric per
+    round, summed over all shards -- the obs layer's `fabric_bytes`
+    column is this times the flat row size.
+
+    "halo" ships each shard's boundary-crossing rows only (`halo_rows`
+    per shard, from `HaloPlan`); "all_gather" materializes the full
+    padded matrix on every shard.
+    """
+    if backend == "halo":
+        return num_shards * halo_rows
+    if backend == "all_gather":
+        return num_shards * rows_padded
+    raise ValueError(f"unknown gossip backend {backend!r}")

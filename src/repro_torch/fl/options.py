@@ -15,11 +15,21 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeOptions:
-    """mesh (silo-axis sharding), gossip (its cross-shard collective),
-    metrics (an `obs.MetricsSpec` of in-cycle metrics) and trace (a trace
-    file path). metrics and trace are ported; mesh and gossip are not
-    (the trainer raises for ``mesh=``, and ``gossip`` is read only by the
-    mesh runtime)."""
+    """Runtime knobs shared by trainer / controller / launch configs.
+
+    mesh    -- silo sharding for the flat runtime (fl/mesh.py): None =
+               one device (the oracle); an int D = D shards stacked in
+               this process on the run's device (`StackedShards`);
+               "auto" = one shard per rank of the default
+               `torch.distributed` group when one is initialised
+               (`GroupShards`: gloo on the CPU, NCCL across cards), else
+               one stacked shard; or a shard-axis object, used as is.
+    gossip  -- the mesh runtime's cross-shard source-row collective:
+               "halo" (boundary exchange) or "all_gather" (baseline).
+    metrics -- an `obs.MetricsSpec` computed inside the cycle; None = off.
+    trace   -- path for a Perfetto trace-event JSON of the run; None =
+               off.
+    """
 
     mesh: object = None
     gossip: str = "halo"

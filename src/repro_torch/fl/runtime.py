@@ -100,17 +100,94 @@ def init_flat_state(w0: torch.Tensor, opt, rt: FlatRuntime) -> FlatFLState:
     return FlatFLState(w, opt.init(w), w[src])
 
 
+def silo_grad_fn(spec: flatmod.FlatSpec, loss_fn: Callable) -> Callable:
+    """``silo_grads(w, batch) -> (grads (K, T), losses (K,))`` for K flat
+    rows ``w`` and a batch dict whose leaves lead with K. Differentiates
+    by leaf and packs once: the gradient of a flat row through `unravel`
+    would add one zero-filled (T,) row per leaf."""
+    tree_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+
+    def silo_grads(w, batch):
+        grads, loss = tree_grads(flatmod.unravel_stacked(spec, w), batch)
+        return flatmod.ravel_stacked(spec, grads), loss
+
+    return silo_grads
+
+
+def local_sgd(silo_grads: Callable, opt, lr_scale: float, w, opt_state,
+              local_updates: int, batch_at: Callable, grad_sq=None):
+    """One round's local steps on every row of ``w``: step u trains on
+    ``batch_at(u)``. Returns ``(w, opt_state, losses (u, K), gsq)``, where
+    gsq lists ``grad_sq(grads)`` of each step when ``grad_sq`` is given
+    (the metric tap reads the gradients and changes nothing)."""
+    losses, gsq = [], []
+    for u in range(local_updates):
+        grads, loss = silo_grads(w, batch_at(u))
+        if grad_sq is not None:
+            gsq.append(grad_sq(grads))
+        w, opt_state = opt.update(w, grads, opt_state, lr_scale)
+        losses.append(loss)
+    return w, opt_state, torch.stack(losses), gsq
+
+
+def round_taps(ms, rt: FlatRuntime, dev, *, sq: Callable, extra=None):
+    """The in-cycle metric taps of one cycle call: returns
+    ``row(strong_r, w0, w, gsq, round_loss) -> (K,)``, one round's row of
+    ``ms``'s columns. ``sq`` is the sum of squares over the real silo
+    rows; ``extra`` holds more 0-d traffic values (the mesh runtime's
+    ``fabric_bytes``). The plan slices are global, so strong edges are
+    counted over all 2E. Buffer age restarts with each call: "rounds
+    since refresh, within this call"."""
+    e2 = int(rt.dst_sorted.shape[0])
+    row_bytes = float(rt.spec.size * 4)  # fp32 flat rows
+    age = torch.zeros(e2, dtype=torch.float32, device=dev)
+    # a divisor on the device: torch turns division by a host scalar (and
+    # `mean`) on CUDA into a multiply by its reciprocal, and CPU and card
+    # would round differently
+    e2_t = torch.full((), float(e2), device=dev)
+
+    def row(strong_r, w0, w, gsq, round_loss):
+        nonlocal age
+        vals = {}
+        if ms.grad_norm:
+            vals["gsq"] = torch.stack(gsq).sum()
+        if ms.param_norm:
+            vals["psq"] = sq(w)
+        if ms.update_norm:
+            vals["usq"] = sq(w - w0)
+        if ms.silo_loss:
+            vals["silo_loss"] = round_loss.mean(dim=0)
+        n_strong = torch.sum(strong_r.to(torch.float32))
+        age = torch.where(strong_r, 0.0, age + 1.0)
+        if ms.staleness:
+            vals["stale_frac"] = 1.0 - n_strong / e2_t
+            vals["buf_age"] = torch.sum(age) / e2_t
+        if ms.traffic:
+            vals["gossip_bytes"] = n_strong * row_bytes
+            vals.update(extra or {})
+        return obsmet.assemble_row(ms, vals)
+
+    return row
+
+
 def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
                   lr_scale: float = 1.0, aggregator: str = "kernel",
-                  metrics=None):
+                  gossip: str | None = None, metrics=None):
     """Build the whole-cycle step.
 
     Returns ``cycle(state, batches, strong, coeffs, diag) -> (state,
-    losses)``: batches has tensors ``x`` (R, u, N, b, ...) and ``y``
-    (R, u, N, b); the plan slices are (R, 2E) / (R, N) tensors in the
-    runtime's sorted edge order, on the state's device; losses (R,) is
-    each round's mean loss over local steps and silos. R is whatever
-    slice of the cycle the caller passes.
+    losses)``: batches is a dict of tensors, each leading with (R, u, N)
+    (FEMNIST's ``x`` (R, u, N, b, ...) and ``y`` (R, u, N, b), the LM's
+    ``tokens``, ``labels`` and ``prefix_embeds``), and ``loss_fn(params,
+    batch)`` takes one silo's slice of each; the plan slices are (R, 2E) /
+    (R, N) tensors in the runtime's sorted edge order, on the state's
+    device; losses (R,) is each round's mean loss over local steps and
+    silos. R is whatever slice of the cycle the caller passes.
+
+    Passing a `fl/mesh.py` MeshRuntime instead builds the SHARDED twin of
+    this function (same external contract; ``gossip`` picks its
+    cross-shard backend, default "halo"). ``gossip`` with a flat runtime
+    raises, as in the reference.
 
     aggregator: "kernel" (`ops.edge_aggregate`: the CUDA kernel for
     tensors on a card, the plain version on the CPU), "reference" (the
@@ -123,6 +200,15 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
     the Python branches below add no op, so the state is bit for bit
     that of a run with metrics; the metric taps only read.
     """
+    from repro_torch.fl import mesh as flmesh  # fl.mesh imports this module
+    if isinstance(rt, flmesh.MeshRuntime):
+        return flmesh.make_mesh_cycle_fn(
+            rt, loss_fn=loss_fn, opt=opt, lr_scale=lr_scale,
+            gossip_backend=gossip or "halo", aggregator=aggregator,
+            metrics=metrics)
+    if gossip is not None:
+        raise ValueError("gossip= selects the MESH runtime's cross-shard "
+                         "backend; pass a MeshRuntime to use it")
     if aggregator not in ("kernel", "reference", "dense"):
         raise ValueError(f"aggregator must be 'kernel', 'reference' or "
                          f"'dense', got {aggregator!r}")
@@ -139,20 +225,10 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
     else:
         aggregate = (gossip_ops.edge_aggregate if aggregator == "kernel"
                      else edge_aggregate_ref)
-    spec = rt.spec
     ms = metrics
-    if ms is not None:
-        e2 = int(rt.dst_sorted.shape[0])
-        row_bytes = float(spec.size * 4)  # fp32 flat rows
+    silo_grads = silo_grad_fn(rt.spec, loss_fn)
+    sq = lambda x: torch.sum(torch.square(x))
     on_device: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
-
-    tree_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
-
-    def silo_grads(w, batch):
-        # Differentiate by leaf and pack once: the gradient of a flat row
-        # through `unravel` would add one zero-filled (T,) row per leaf.
-        grads, loss = tree_grads(flatmod.unravel_stacked(spec, w), batch)
-        return flatmod.ravel_stacked(spec, grads), loss
 
     @torch.no_grad()
     def cycle(state: FlatFLState, batches, strong, coeffs, diag):
@@ -163,50 +239,21 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
                 torch.as_tensor(rt.row_ptr, dtype=torch.int32, device=dev))
         src, row_ptr = on_device[dev]
         w, os_, buf = state.w, state.opt_state, state.buffers
-        losses = []
+        local_updates = next(iter(batches.values())).shape[1]
+        losses, rows = [], []
         if ms is not None:
-            # buffer age restarts each cycle call: "rounds since refresh,
-            # within this call"
-            age = torch.zeros(e2, dtype=torch.float32, device=dev)
-            rows = []
-            # a divisor on the device: torch turns division by a host
-            # scalar (and `mean`) on CUDA into a multiply by its
-            # reciprocal, and CPU and card would round differently
-            e2_t = torch.full((), float(e2), device=dev)
+            taps = round_taps(ms, rt, dev, sq=sq)
         for r in range(strong.shape[0]):
-            if ms is not None:
-                w0, gsq = w, []
-            round_loss = []
-            for u in range(batches["x"].shape[1]):
-                batch = {"x": batches["x"][r, u], "y": batches["y"][r, u]}
-                grads, loss = silo_grads(w, batch)
-                w, os_ = opt.update(w, grads, os_, lr_scale)
-                round_loss.append(loss)
-                if ms is not None and ms.grad_norm:
-                    gsq.append(torch.sum(torch.square(grads)))
+            w0 = w
+            w, os_, round_loss, gsq = local_sgd(
+                silo_grads, opt, lr_scale, w, os_, local_updates,
+                lambda u: {k: v[r, u] for k, v in batches.items()},
+                grad_sq=sq if ms is not None and ms.grad_norm else None)
             buf = torch.where(strong[r][:, None], w[src], buf)
             w = aggregate(w, buf, coeffs[r], row_ptr, diag[r])
-            round_loss = torch.stack(round_loss)
             losses.append(round_loss.mean())
-            if ms is None:
-                continue
-            vals = {}
-            if ms.grad_norm:
-                vals["gsq"] = torch.stack(gsq).sum()
-            if ms.param_norm:
-                vals["psq"] = torch.sum(torch.square(w))
-            if ms.update_norm:
-                vals["usq"] = torch.sum(torch.square(w - w0))
-            if ms.silo_loss:
-                vals["silo_loss"] = round_loss.mean(dim=0)
-            n_strong = torch.sum(strong[r].to(torch.float32))
-            age = torch.where(strong[r], 0.0, age + 1.0)
-            if ms.staleness:
-                vals["stale_frac"] = 1.0 - n_strong / e2_t
-                vals["buf_age"] = torch.sum(age) / e2_t
-            if ms.traffic:
-                vals["gossip_bytes"] = n_strong * row_bytes
-            rows.append(obsmet.assemble_row(ms, vals))
+            if ms is not None:
+                rows.append(taps(strong[r], w0, w, gsq, round_loss))
         out = (FlatFLState(w, os_, buf), torch.stack(losses))
         if ms is None:
             return out

@@ -11,13 +11,14 @@ runtimes share the loop (`FLConfig.runtime`):
     the hooks: in-cycle metrics (``metrics=``), a Perfetto trace
     (``trace=``: host spans around dispatch, eval and checkpoint, the
     plan's simulated spans and the metrics as counters) and FL
-    checkpoints (``ckpt_dir=``/``ckpt_every``/``ckpt_keep``);
+    checkpoints (``ckpt_dir=``/``ckpt_every``/``ckpt_keep``). With
+    ``mesh=`` (`fl/options.py`) the cycle runs sharded over a shard axis
+    (`fl/mesh.py`, ``gossip=`` picks its collective): evaluation and
+    checkpoints read the gathered single-device rows, so a mesh run
+    evaluates and saves what the flat run would;
   * "legacy": one `dpasgd.fl_round_step` a round over per-leaf trees,
-    the flat runtime's oracle (bit-equal on the CPU); it takes no hook,
-    as in the reference.
-
-Ported: everything the reference runs on one device. ``mesh=`` (silo
-sharding across devices) raises `NotImplementedError`.
+    the flat runtime's oracle (bit-equal on the CPU); it takes no hook
+    and no mesh, as in the reference.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from repro_torch.device import pin_fp32, resolve_device
 from repro_torch.faults.degrade import removed_network
 from repro_torch.fl import dpasgd
 from repro_torch.fl import flat as flatmod
+from repro_torch.fl import mesh as flmesh
 from repro_torch.fl import runtime as flrt
 from repro_torch.fl.options import RuntimeOptions, adopt_runtime_options
 from repro_torch.launch.mesh import tree_map
@@ -118,7 +120,7 @@ def _sample_round(data, n: int, cfg: FLConfig, rng) -> tuple[np.ndarray,
 
 
 def _check_ported(cfg: FLConfig) -> None:
-    """The reference's refusals, then what is not ported (``mesh=``)."""
+    """The reference's refusals."""
     if (cfg.metrics is not None or cfg.trace) and cfg.runtime != "flat":
         raise ValueError("metrics=/trace= need the flat whole-cycle "
                          "runtime (the legacy path has no in-cycle hook)")
@@ -127,10 +129,8 @@ def _check_ported(cfg: FLConfig) -> None:
                          "(N, T) rows ARE the checkpoint format)")
     if cfg.runtime not in ("flat", "legacy"):
         raise ValueError(f"unknown runtime {cfg.runtime!r}")
-    if cfg.mesh is not None:
-        if cfg.runtime == "legacy":
-            raise ValueError("mesh= requires runtime='flat'")
-        raise NotImplementedError("mesh= is not ported")
+    if cfg.mesh is not None and cfg.runtime == "legacy":
+        raise ValueError("mesh= requires runtime='flat'")
     if cfg.metrics is not None and not isinstance(cfg.metrics, MetricsSpec):
         raise TypeError(f"metrics must be an obs.MetricsSpec, got "
                         f"{type(cfg.metrics).__name__}")
@@ -206,18 +206,34 @@ def _train_flat(cfg, plan, tplan, spec, params0, data, n, rng, dev,
     """The flat whole-cycle runtime: one cycle-function call per chunk of
     rounds, chunks split at eval and checkpoint boundaries; then the
     trace, if asked for: host spans, the plan's simulated spans and the
-    metrics as counters at each round's simulated start."""
+    metrics as counters at each round's simulated start. Under ``mesh=``
+    every process of a group trains its shards, and the root writes the
+    files."""
     rt = flrt.make_flat_runtime(plan, params0, n)
     opt = flat_sgd(cfg.lr, momentum=cfg.momentum)
-    state = flrt.init_flat_state(flatmod.ravel(rt.spec, params0).to(dev),
-                                 opt, rt)
-    cycle_fn = flrt.make_cycle_fn(rt, loss_fn=spec.loss, opt=opt,
-                                  aggregator=aggregator, metrics=cfg.metrics)
+    w0 = flatmod.ravel(rt.spec, params0).to(dev)
+    if cfg.mesh is not None:
+        mrt = flmesh.make_mesh_runtime(rt, cfg.mesh, device=dev)
+        state = flmesh.init_mesh_state(w0, opt, mrt)
+        cycle_fn = flrt.make_cycle_fn(mrt, loss_fn=spec.loss, opt=opt,
+                                      aggregator=aggregator,
+                                      gossip=cfg.gossip, metrics=cfg.metrics)
+        # the single-device rows: pad rows and the block-padded edge
+        # layout never reach evaluation or a checkpoint
+        rows = lambda st: flmesh.gather_flat_state(mrt, st).w
+        root = mrt.axis.root
+    else:
+        state = flrt.init_flat_state(w0, opt, rt)
+        cycle_fn = flrt.make_cycle_fn(rt, loss_fn=spec.loss, opt=opt,
+                                      aggregator=aggregator,
+                                      metrics=cfg.metrics)
+        rows = lambda st: st.w
+        root = True
     plan_t = {k: torch.as_tensor(getattr(rt, k), device=dev)
               for k in ("strong", "coeffs", "diag")}
 
     recorder = None
-    if cfg.trace:
+    if cfg.trace and root:
         recorder = TraceRecorder()
         recorder.meta.update(dataset=cfg.dataset, network=cfg.network,
                              topology=cfg.topology, rounds=cfg.rounds,
@@ -236,8 +252,11 @@ def _train_flat(cfg, plan, tplan, spec, params0, data, n, rng, dev,
         ckpt_mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep)
 
         def emit_ckpt(k, state):
+            w = rows(state)  # a collective under a group: every rank
+            if not root:
+                return
             save_fl_checkpoint(
-                ckpt_mgr, k, state.w,
+                ckpt_mgr, k, w,
                 round=k, network=cfg.network, dataset=cfg.dataset,
                 topology=cfg.topology, t=cfg.t, seed=cfg.seed,
                 num_silos=n, multiplicity=cfg.multiplicity,
@@ -277,7 +296,7 @@ def _train_flat(cfg, plan, tplan, spec, params0, data, n, rng, dev,
         if k % cfg.eval_every == 0 or k == cfg.rounds:
             with span("eval", round=k):
                 eval_accs.append(accuracy(
-                    flatmod.unravel(rt.spec, state.w.mean(dim=0))))
+                    flatmod.unravel(rt.spec, rows(state).mean(dim=0))))
             eval_rounds.append(k)
         if ckpt_mgr is not None and (
                 k == cfg.rounds or

@@ -11,8 +11,12 @@ runtime branches on the spec in Python only), so the state is bit for
 bit that of a run without metrics. The taps only read the cycle's
 tensors; none of them writes one.
 
-`metric_columns` gives the canonical column order; the mesh runtime's
-extra ``fabric_bytes`` column is not ported (no mesh runtime yet).
+`metric_columns` gives the canonical column order, shared by the flat
+and mesh runtimes; the mesh runtime appends one ``fabric_bytes`` column
+(the rows its gather backend moves between shards a round, times the row
+size), which has no flat counterpart. The mesh runtime sums its norms
+shard by shard, so their values may differ from the flat runtime's in
+the last bits; the state does not.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ class MetricsSpec:
                    buffer was refreshed, counted from the cycle call's
                    start).
     traffic      — `gossip_bytes`: strong-edge count x flat row bytes.
+                   The mesh runtime adds `fabric_bytes` (the bytes its
+                   gather backend moves between shards a round).
     """
 
     grad_norm: bool = True
@@ -51,11 +57,13 @@ class MetricsSpec:
             raise ValueError("MetricsSpec with every metric disabled "
                              "records nothing; pass metrics=None instead")
 
-    def columns(self, num_silos: int) -> tuple[str, ...]:
-        return metric_columns(self, num_silos)
+    def columns(self, num_silos: int, *,
+                mesh: bool = False) -> tuple[str, ...]:
+        return metric_columns(self, num_silos, mesh=mesh)
 
 
-def metric_columns(ms: MetricsSpec, num_silos: int) -> tuple[str, ...]:
+def metric_columns(ms: MetricsSpec, num_silos: int, *,
+                   mesh: bool = False) -> tuple[str, ...]:
     """Canonical column order of the `(R, K)` metrics output."""
     cols: list[str] = []
     if ms.grad_norm:
@@ -70,6 +78,8 @@ def metric_columns(ms: MetricsSpec, num_silos: int) -> tuple[str, ...]:
         cols.extend(("stale_frac", "buf_age"))
     if ms.traffic:
         cols.append("gossip_bytes")
+        if mesh:
+            cols.append("fabric_bytes")
     return tuple(cols)
 
 
@@ -78,7 +88,8 @@ def assemble_row(ms: MetricsSpec, vals: dict) -> torch.Tensor:
 
     ``vals`` holds 0-d tensors ``gsq``/``psq``/``usq`` (sums of squares;
     the square root is taken here), ``silo_loss`` (N,), ``stale_frac``,
-    ``buf_age`` and ``gossip_bytes``, each only where its flag is on.
+    ``buf_age``, ``gossip_bytes`` and, from the mesh runtime,
+    ``fabric_bytes``, each only where its flag is on.
     """
     parts = []
     if ms.grad_norm:
@@ -94,4 +105,6 @@ def assemble_row(ms: MetricsSpec, vals: dict) -> torch.Tensor:
         parts.append(vals["buf_age"].reshape(1))
     if ms.traffic:
         parts.append(vals["gossip_bytes"].reshape(1))
+        if "fabric_bytes" in vals:
+            parts.append(vals["fabric_bytes"].reshape(1))
     return torch.cat([p.to(torch.float32) for p in parts])

@@ -10,8 +10,10 @@ latest checkpoint as a regional fleet (one ServingEngine replica per
 continent with silos, serving/fleet.py), its decode steps captured as
 CUDA graphs on the card; then sweep open-loop offered load through the
 fleet (serving/traffic.py) and print one summary row per load.
---mesh and --lora-rank (the mesh runtime and LoRA training) refuse
-before anything runs: ROADMAP queue 1 #6.
+--mesh trains on the mesh-sharded whole-cycle runtime (an int D: D
+shards stacked on the device; 'auto': the default process group if one
+is initialised) and --lora-rank R (with --mesh) trains rank-R LoRA deltas
+over a frozen base, which the fleet rebuilds to serve them.
 
   --bench BENCH_torch_serving.json  merge serving/ rows (the format
                                `python -m repro_torch.obs validate
@@ -31,10 +33,6 @@ from __future__ import annotations
 import argparse
 import json
 import tempfile
-
-_MESH = ("--mesh and --lora-rank train on the mesh runtime, which is not "
-         "ported yet (ROADMAP queue 1 #6)")
-
 
 def main(argv=None) -> int:
     # no abbreviations: the reference's --t would otherwise pass as --trace
@@ -66,8 +64,6 @@ def main(argv=None) -> int:
                     help="torch device to train and serve on (default: the "
                          "card)")
     args = ap.parse_args(argv)
-    if args.mesh is not None or args.lora_rank:
-        ap.error(_MESH)
     if args.skip_train and args.ckpt_dir is None:
         ap.error("--skip-train serves --ckpt-dir's latest checkpoint: give "
                  "--ckpt-dir")
@@ -76,10 +72,14 @@ def main(argv=None) -> int:
     out = {"ckpt_dir": ckpt_dir}
     if not args.skip_train:
         from repro_torch.launch.train import TrainConfig, run_reduced_fl
+        mesh = args.mesh
+        if mesh is not None and mesh != "auto":
+            mesh = int(mesh)
         train = run_reduced_fl(TrainConfig(
             arch=args.arch, topology=args.topology, network=args.network,
             silos=args.silos, rounds=args.rounds, t=args.t,
-            seed=args.seed, ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every),
+            seed=args.seed, mesh=mesh, lora_rank=args.lora_rank,
+            ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every),
             device=args.device)
         out["train"] = {k: train[k] for k in
                         ("arch", "topology", "silos", "loss_first",

@@ -24,11 +24,15 @@ Checkpoint kinds (meta["params_kind"]):
                   variant is `unravel(spec, mean(region rows))`, the
                   mean taken in numpy as the reference takes it, so the
                   variants are bit-equal to the reference's.
-* "lora_delta"  — rows are LoRA delta vectors over a frozen base that
-                  the reference rebuilds from `jax.random.PRNGKey(seed +
-                  1)`, a stream torch cannot reproduce; it raises
-                  NotImplementedError until fl/lora is ported (ROADMAP
-                  queue 1 #6).
+* "lora_delta"  — rows are LoRA delta vectors over a frozen base; the
+                  variant is `apply_delta(base, unravel(spec, mean(region
+                  rows)))`. The port's trainer draws the base from a
+                  CPU `torch.Generator` seeded ``seed + 1``
+                  (`fl/lora.lora_base`) and records that as
+                  ``base_init="torch-cpu"``; a checkpoint without that
+                  key (the reference's, whose base comes from
+                  `jax.random.PRNGKey(seed + 1)`, a stream torch cannot
+                  reproduce) raises ValueError.
 
 `RegionalFleet.route(lat, lon)` sends a client to its nearest region
 anchor; serving/traffic.py drives the fleet under open-loop load. On the
@@ -46,6 +50,7 @@ from repro_torch.checkpoint import FLCheckpoint, load_fl_checkpoint
 from repro_torch.configs import get_config, reduce as reduce_cfg
 from repro_torch.device import resolve_device
 from repro_torch.fl import flat as flatmod
+from repro_torch.fl import lora
 from repro_torch.models import transformer as tf
 from repro_torch.networks.registry import get_network
 from repro_torch.networks.zoo import NetworkSpec, haversine_km
@@ -184,20 +189,29 @@ def _region_variants(ckpt: FLCheckpoint, mcfg, groups, device) -> dict:
     meta = ckpt.meta
     kind = meta.get("params_kind", "full")
     if kind == "lora_delta":
-        raise NotImplementedError(
-            "lora_delta checkpoints are not servable by the port yet: "
-            "their frozen base is rebuilt from jax.random.PRNGKey(seed + "
-            "1), which torch cannot reproduce; see ROADMAP queue 1 #6 "
-            "(fl/lora)")
-    if kind != "full":
+        # the exact base launch/train.py froze: `lora_base`, same arch cfg
+        if meta.get("base_init") != lora.BASE_INIT:
+            raise ValueError(
+                "lora_delta checkpoint without base_init="
+                f"{lora.BASE_INIT!r}: its frozen base was drawn from "
+                "jax.random.PRNGKey(seed + 1) (the reference's trainer), "
+                "which torch cannot reproduce, so the port cannot rebuild "
+                "the model it served")
+        rank = int(meta["lora_rank"])
+        base = lora.lora_base(mcfg, int(meta.get("seed", 0)), device)
+        spec = flatmod.make_flat_spec(lora.delta_template(base, rank))
+        build = lambda row: lora.apply_delta(base, flatmod.unravel(spec, row))
+    elif kind == "full":
+        # the leaves' names, shapes and types; the values are not used
+        spec = flatmod.make_flat_spec(
+            tf.init_params(mcfg, torch.Generator(), device="cpu"))
+        build = lambda row: flatmod.unravel(spec, row)
+    else:
         raise ValueError(f"unknown params_kind {kind!r}")
-    # the leaves' names, shapes and types; the values are not used
-    spec = flatmod.make_flat_spec(
-        tf.init_params(mcfg, torch.Generator(), device="cpu"))
     if ckpt.w.shape[1] != spec.size:
         raise ValueError(
             f"checkpoint rows have {ckpt.w.shape[1]} params but "
             f"{meta.get('arch')}/{kind} expects {spec.size}")
-    return {r: flatmod.unravel(spec, torch.from_numpy(np.asarray(
+    return {r: build(torch.from_numpy(np.asarray(
                 np.mean(ckpt.w[idxs], axis=0), np.float32)).to(device))
             for r, idxs in groups.items()}

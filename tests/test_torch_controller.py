@@ -207,6 +207,8 @@ def test_refusals():
         pcontroller.ControllerConfig(metrics=object())
     with pytest.raises(ValueError, match="must divide"):
         pcontroller.ControllerConfig(rounds=24, replan_every=10)
-    with pytest.raises(NotImplementedError, match="queue 1 #6"):
+    # mesh= builds (tests/test_torch_fl_mesh.py runs it); an unknown
+    # gossip backend of the mesh runtime is refused as in the reference
+    with pytest.raises(ValueError, match="backend"):
         pcontroller.ControllerHarness(pcontroller.ControllerConfig(
-            mesh="auto"), device="cpu")
+            mesh="auto", gossip="bogus"), device="cpu")

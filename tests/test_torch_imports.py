@@ -48,3 +48,19 @@ def test_package_sources_import_nothing_forbidden():
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
         bad = _imported_roots(path) & set(FORBIDDEN)
         assert not bad, (path, bad)
+
+
+def test_mesh_and_lora_import_nothing_forbidden():
+    """The mesh runtime, its shard axis and the LoRA deltas import alone
+    without any of the forbidden packages."""
+    code = (
+        "import sys\n"
+        "import repro_torch.fl.mesh, repro_torch.fl.lora\n"
+        "import repro_torch.launch.mesh\n"
+        "from repro_torch.fl import make_mesh_runtime, make_lora_adapter\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -155,6 +155,34 @@ def test_other_archs_match_reference(monkeypatch, arch):
     _same_run(got, want)
 
 
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "paligemma-3b"])
+def test_mesh_runs_equal_the_legacy_runtime(monkeypatch, tmp_path, arch):
+    """`run_reduced_fl(mesh=1)` and `(mesh=2)` (3 silos: one pad row)
+    from the reference's start equal the legacy runtime's run, which the
+    tests above hold against the reference: losses, the simulated axis,
+    checkpoint steps, metadata and rows bit for bit. This holds the mesh
+    branch's chunked draws, its LM batch leaves and paligemma's prefix
+    broadcast to the legacy per-round path."""
+    _reference_start(monkeypatch, arch, silos=3)
+    kw = dict(arch=arch, rounds=4, silos=3, seq_len=16, batch_size=2,
+              ckpt_every=2)
+    runs = {}
+    for mesh in (None, 1, 2):
+        ck = tmp_path / f"mesh{mesh}"
+        runs[mesh] = (ptrain.run_reduced_fl(ptrain.TrainConfig(
+            **kw, mesh=mesh, ckpt_dir=str(ck)), device="cpu"), ck)
+    want, ck0 = runs[None]
+    for mesh in (1, 2):
+        got, ck = runs[mesh]
+        assert got["losses"] == want["losses"]
+        for k in SIM + ("ckpt_steps",):
+            assert got[k] == want[k], k
+        for step in (2, 4):
+            a, b = pload(ck, step), pload(ck0, step)
+            assert dict(a.meta) == dict(b.meta)
+            np.testing.assert_array_equal(a.w, b.w)
+
 def test_aggregates_every_leaf_through_edge_aggregate(monkeypatch):
     """`fl_round_step` sends each leaf of each round to `edge_aggregate`
     (counted here through a wrapper: on the CPU the op runs its plain
@@ -176,18 +204,31 @@ def test_aggregates_every_leaf_through_edge_aggregate(monkeypatch):
     assert np.isfinite(out["losses"]).all()
 
 
-def test_mesh_and_lora_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 #6"):
-        ptrain.run_reduced_fl(ptrain.TrainConfig(mesh=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 #6"):
-        ptrain.run_reduced_fl(ptrain.TrainConfig(mesh="auto", lora_rank=4),
-                              device="cpu")
+def test_mesh_and_lora_raise(capsys):
+    """The reference's refusals stay (lora_rank without a mesh, metrics);
+    ``mesh=`` with and without ``lora_rank`` trains (the flat whole-cycle
+    runtime on two stacked shards; LoRA's T is its delta's), and so does
+    ``--mesh 2 --lora-rank 4`` on the command line."""
     with pytest.raises(ValueError, match="lora_rank requires the mesh"):
         ptrain.run_reduced_fl(ptrain.TrainConfig(lora_rank=4), device="cpu")
     with pytest.raises(ValueError, match="metrics"):
         ptrain.TrainConfig(metrics=object())
-    with pytest.raises(NotImplementedError, match="queue 1 #6"):
-        ptrain.main(["--mesh", "2", "--device", "cpu"])
+    small = dict(rounds=2, silos=3, seq_len=16, batch_size=2)
+    full = ptrain.run_reduced_fl(ptrain.TrainConfig(**small, mesh=2),
+                                 device="cpu")
+    low = ptrain.run_reduced_fl(ptrain.TrainConfig(**small, mesh="auto",
+                                                   lora_rank=4), device="cpu")
+    for out in (full, low):
+        assert set(out) == KEYS and len(out["losses"]) == 2
+        assert np.isfinite(out["losses"]).all()
+    # a LoRA silo communicates its delta row: a smaller simulated model
+    assert low["sim_total_time_s"] < full["sim_total_time_s"]
+    assert ptrain.main(["--mesh", "2", "--lora-rank", "4", "--rounds", "2",
+                        "--silos", "3", "--seq-len", "16", "--batch-size",
+                        "2", "--device", "cpu"]) == 0
+    printed = json.loads(capsys.readouterr().out)
+    assert set(printed) == KEYS - {"losses"}
+    assert printed["loss_first"] == low["loss_first"]
 
 
 def test_main_prints_the_reference_keys(capsys):

@@ -139,11 +139,14 @@ def test_sweep_summaries_and_tokens_match_reference(sweeps):
 
 
 def test_lora_delta_checkpoint_raises(fleets):
+    """A `lora_delta` checkpoint without the port's ``base_init`` (as the
+    reference's trainer writes one: its base is drawn from
+    `jax.random.PRNGKey(seed + 1)`) cannot be rebuilt by the port."""
     port = fleets[0]
     ckpt = FLCheckpoint(step=1, w=port.ckpt.w[:, :64],
                         meta=dict(port.meta, params_kind="lora_delta",
                                   lora_rank=4))
-    with pytest.raises(NotImplementedError, match="queue 1 #6"):
+    with pytest.raises(ValueError, match="jax.random"):
         RegionalFleet.from_checkpoint(ckpt, device="cpu")
 
 
@@ -306,13 +309,30 @@ def test_cli_trains_then_serves_by_default(tmp_path, capsys):
 @pytest.mark.parametrize("args", [
     ("--mesh", "2"), ("--skip-train", "--mesh", "2"),
     ("--skip-train", "--lora-rank", "4")], ids=["train", "mesh", "lora"])
-def test_cli_refuses_to_train(ckpt_dir, tmp_path, args):
-    """The mesh runtime and LoRA training are not ported: --mesh and
-    --lora-rank refuse before anything runs, on the training path and
-    with --skip-train."""
-    r = _cli(*args, "--ckpt-dir", ckpt_dir, "--device", "cpu", cwd=tmp_path)
-    assert r.returncode == 2
-    assert "queue 1 #6" in r.stderr and not r.stdout
+def test_cli_refuses_to_train(ckpt_dir, tmp_path, args, capsys):
+    """--mesh and --lora-rank no longer refuse. With training, --mesh 2
+    --lora-rank 4 trains LoRA deltas on two stacked shards and serves the
+    `lora_delta` checkpoint it wrote; with --skip-train the flags are
+    ignored, as the reference's CLI ignores them, and ``ckpt_dir`` is
+    served as it is."""
+    from repro_torch.serving.__main__ import main
+    train = args[0] != "--skip-train"
+    d = str(tmp_path / "trained") if train else ckpt_dir
+    extra = ("--lora-rank", "4", "--rounds", "2", "--silos", "3") \
+        if train else ()
+    assert main([*args, *extra, "--ckpt-dir", d, "--loads", "20",
+                 "--duration-ms", "100", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert ("train" in out) == train
+    meta = load_fl_checkpoint(d).meta
+    if train:
+        assert out["train"]["ckpt_steps"] == [2] and out["ckpt_step"] == 2
+        assert np.isfinite([out["train"]["loss_first"],
+                            out["train"]["loss_last"]]).all()
+        assert (meta["params_kind"], meta["lora_rank"]) == ("lora_delta", 4)
+    else:
+        assert out["ckpt_step"] == 3 and meta["params_kind"] == "full"
+    assert out["serve"][0]["completed"] > 0
 
 
 @pytest.mark.parametrize("flag,value,field", [

@@ -134,14 +134,15 @@ def test_run_fl_matches_reference(monkeypatch, change):
 
 @pytest.mark.parametrize("change,err", [
     (dict(runtime="legacy", mesh=2), ValueError),
-    (dict(mesh=2), NotImplementedError),
+    (dict(mesh=2, gossip="bogus"), ValueError),
     (dict(runtime="legacy", trace="t.json"), ValueError),
     (dict(runtime="legacy", ckpt_dir="ck"), ValueError),
     (dict(metrics=object()), TypeError)],
     ids=["legacy", "mesh", "trace", "ckpt_dir", "metrics"])
 def test_run_fl_rejects_unported(change, err):
-    """`mesh=` is the one option not ported; the legacy runtime refuses a
-    mesh, a trace and checkpoints as the reference does, and metrics must
-    be a `MetricsSpec`."""
+    """The reference's refusals: the legacy runtime refuses a mesh, a
+    trace and checkpoints, the mesh runtime an unknown gossip backend
+    (`mesh=` itself trains: tests/test_torch_fl_mesh.py), and metrics
+    must be a `MetricsSpec`."""
     with pytest.raises(err):
         prun_fl(PConfig(rounds=1, **change), device="cpu")
