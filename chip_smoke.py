@@ -224,18 +224,30 @@ Phases, each printing one JSON line:
    LoRA rank 8 over mamba2-370m at full width and depth on 2 stacked
    shards, 4 gaia silos, the first 4 rounds of the cycle: T_lora, ms a
    round, peak memory, finite losses;
-22. run_fl_models (run last with the next phase): the same as 4 for the
+22. launch_analysis (no kernel launched): the launch analysis tools
+   against the card's own readings. (a) Every prefill and train step
+   timed above against its analytic bound on this card
+   (`repro_torch.launch.roofline.bound_ms`: the reference's FLOP and
+   byte model at the data sheet's rates): none may be faster. (b) The
+   dry run's peak live bytes of `llm_train`'s two steps, traced on fake
+   tensors in two spawned worker processes, against their
+   `max_memory_allocated`, within DRY_PEAK_BAND. (c) Every
+   `fabric_bytes` reading of `fl_mesh` equal to `fl_mesh_fabric_bytes`
+   of `fl_mesh_report(network="gaia")` at FEMNIST's width. (d) The dry
+   run's CLI (DRYRUN_CLI, in a subprocess meanwhile) and the roofline
+   CLI on its reports, each exiting 0;
+23. run_fl_models (run last with the next phase): the same as 4 for the
    Sent140 LSTM and the iNaturalist ResNet (gaia, multigraph, batch 32,
    lr 0.05, 30 rounds), then one steady-state cycle of each, timed and
    profiled as in 5;
-23. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
+24. topologies: FEMNIST, 6 rounds per case, each run as in 4 (one launch
    a round, the plain aggregation bit-equal): star, mst, dmbst, ring,
    matcha and matcha_plus on gaia; the multigraph on geant, exodus and
    ebone (overlays from the blossom matching); the multigraph with
    Algorithm 1's multiplicity vector (which must train exactly as the
    default run) and another; two silos removed, randomly and by
    inefficiency;
-24. design_loop (run last, deterministic algorithms on): the
+25. design_loop (run last, deterministic algorithms on): the
    time-to-accuracy evaluator and the paper's tables.
    `evaluate_frontier` on gaia / femnist at its defaults (60 rounds,
    batch 16, 64 samples a silo) over Algorithm 1's t = 5 vector, the
@@ -253,7 +265,7 @@ Phases, each printing one JSON line:
    total). One drift trace by `python -m repro_torch.obs trace`, checked
    by `validate`. The tables' and scenarios' times and `tta_s` are
    simulated seconds of the paper's network model, not the card's;
-25. design_search (last, deterministic algorithms on): the design search
+26. design_search (last, deterministic algorithms on): the design search
    and the fault controller. (a) The paper's whole grid (105 cells, 15
    on the recurrence axis, 6,400 rounds) by `TimingGrid.reports` on the
    device grid (`backend="torch"`) and on the host, equal report for
@@ -280,7 +292,9 @@ Phases, each printing one JSON line:
 decode kernel of the port under DIR/src at the three decode shapes
 (`decode_bench`), `--ssd-bench DIR` only the SSD scan at the two
 prefill shapes (`ssd_bench`), and `--cycle-bench DIR` only the FEMNIST
-cycle (`cycle_bench`), so that two commits compare in one call.
+cycle (`cycle_bench`), so that two commits compare in one call;
+`--profiler-bench SECONDS` samples how many short kernels' records the
+profiler keeps, in a bare and a padded window, as the process ages.
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Any
@@ -290,6 +304,7 @@ device, or without the repository's src/ beside it, it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -308,32 +323,23 @@ SRC = ROOT / "src"
 MAIN_SHAPE = dict(n=11, t=1_280_478)      # gaia silos, FEMNIST CNN size
 ROUNDS = 30
 
-# Data-sheet HBM rates (bytes/s), non-tensor fp32 peaks and dense bf16
-# tensor-core peaks (flop/s).
-_CARD_RATES = (("H200", 4.8e12, 67e12, 989e12),
-               ("H100 NVL", 3.9e12, 60e12, 835e12),
-               ("H100 PCIe", 2.0e12, 51e12, 756e12),
-               ("H100", 3.35e12, 67e12, 989e12))
-
 
 def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
 def card_rates(name: str) -> tuple[float, float, str]:
-    """(HBM bytes/s, fp32 flop/s, name of the row used)."""
-    for key, bw, flops, _ in _CARD_RATES:
-        if key in name:
-            return bw, flops, key
-    return 3.35e12, 67e12, "H100 SXM (assumed)"
+    """(HBM bytes/s, fp32 flop/s, name of the row used): the data-sheet
+    table of `repro_torch.launch.roofline.CARD_RATES`, which the roofline
+    prices with too."""
+    from repro_torch.launch import roofline
+    return roofline.card_rates(name)
 
 
 def bf16_peak(name: str) -> float:
-    """Dense bf16 tensor-core flop/s of the card."""
-    for key, _, _, bf16 in _CARD_RATES:
-        if key in name:
-            return bf16
-    return 989e12
+    """Dense bf16 tensor-core flop/s of the card (the same table)."""
+    from repro_torch.launch import roofline
+    return roofline.bf16_peak(name)
 
 
 def nvidia_smi_line() -> str:
@@ -357,6 +363,29 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+#: Host seconds of sleep that pad every profiler window on both sides of
+#: its work. The profiler drops device records as the process ages: in
+#: one process on an H100, a bare window of 20 back-to-back short kernels
+#: read 20, 16, 13, 9, 5, 2 and then 0 of them over five minutes, the same
+#: window padded by 0.2 s all 20 every time (`--profiler-bench 300`,
+#: PERF.md).
+PROFILE_PAD_S = 0.2
+
+
+@contextlib.contextmanager
+def profiled(torch):
+    """`torch.profiler.profile` of the host and the card around the body,
+    its window padded by PROFILE_PAD_S before the body and after the
+    body's work has finished on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
 
 
 def phase_device(torch, ctx):
@@ -613,11 +642,8 @@ def _cycle_timing(torch, dataset: str, aggregators, profile=True) -> dict:
     cycle(state, batches, *plan_t)
     torch.cuda.synchronize()
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         cycle(state, batches, *plan_t)
-        torch.cuda.synchronize()
     # kernels only: op-level rows repeat their kernels' device time
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
@@ -1426,6 +1452,7 @@ def phase_fl_mesh(torch, ctx):
     _deterministic(torch)
     t0 = time.perf_counter()
     femnist, rt = _mesh_femnist(torch, ctx)
+    ctx["fl_mesh_runs"] = (rt.spec.size, femnist["runs"])
     emit(phase="fl_mesh", part="femnist", nvidia_smi=ctx["smi"],
          seconds=time.perf_counter() - t0, **femnist)
     t1 = time.perf_counter()
@@ -1448,6 +1475,147 @@ def phase_fl_mesh(torch, ctx):
          failures=failures)
     if failures:
         raise AssertionError(f"fl_mesh: {failures}")
+
+
+def _timed(ctx, arch: str, mode: str, batch: int, seq: int, ms: float,
+           **extra) -> None:
+    """Keep a timed prefill or train step for `phase_launch_analysis`:
+    ``seq`` counts the token positions (a prefix's are added by the
+    analytic model)."""
+    ctx.setdefault("timed_steps", []).append(dict(
+        arch=arch, mode=mode, batch=batch, seq=seq, ms=ms, **extra))
+
+
+#: The dry run's peak of a train step against `max_memory_allocated` of
+#: the same step on the card: measured / dry within this band (set in
+#: PERF.md before the phase first ran on a card).
+DRY_PEAK_BAND = (0.95, 1.15)
+#: The dryrun CLI's check in the smoke: mamba2-370m x train_4k on both
+#: meshes, cut to one layer (a full-depth train_4k pair traces for
+#: minutes on the host).
+DRYRUN_CLI = ("--arch", "mamba2-370m", "--shape", "train_4k", "--mesh",
+              "both", "--layers", "1")
+
+
+def _dry_train_peak(arch: str) -> dict:
+    """The dry run of `llm_train`'s step for ``arch`` (4 x 2048,
+    microbatch 1, "h100"), in a worker process of its own."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import InputShape
+    rep = dryrun.dry_pair(arch, InputShape("llm_train", "train",
+                                           TRAIN_SHAPE[1], TRAIN_SHAPE[0]),
+                          "h100", microbatch=1)
+    if rep["status"] != "ok":
+        raise RuntimeError(f"dry run of {arch}: {rep.get('error')}")
+    return dict(peak_bytes=rep["memory"]["peak_bytes"],
+                argument_bytes=rep["memory"]["argument_bytes"],
+                flops=rep["cost"]["flops"], trace_s=rep["trace_s"])
+
+
+def phase_launch_analysis(torch, ctx):
+    """The launch analysis tools against the card's own readings; no
+    kernel is launched. (a) Every timed prefill and train step above
+    against its analytic bound on this card (`roofline.bound_ms`): no
+    step under it. (b) The dry run's peak bytes of `llm_train`'s steps
+    (traced on fake tensors in two worker processes) against their
+    `max_memory_allocated`, within DRY_PEAK_BAND. (c) `fl_mesh`'s
+    `fabric_bytes` readings equal to `fl_mesh_fabric_bytes` of
+    `fl_mesh_report(network="gaia")` at FEMNIST's width, for both
+    backends at every D. (d) `python -m repro_torch.launch.dryrun` on
+    DRYRUN_CLI and `python -m repro_torch.launch.roofline` on its
+    output, in a subprocess while (a)-(c) run: both exit 0."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch.specs import InputShape
+
+    t0 = time.perf_counter()
+    failures = []
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
+             "--out", tmp], cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            with ProcessPoolExecutor(
+                    len(TRAIN_ARCHS),
+                    mp_context=multiprocessing.get_context("spawn")) as ex:
+                futures = {a: ex.submit(_dry_train_peak, a)
+                           for a in TRAIN_ARCHS}
+                # (a) the bounds
+                bounds = []
+                for st in ctx["timed_steps"]:
+                    cfg = get_config(st["arch"])
+                    shape = InputShape(st["mode"], st["mode"], st["seq"],
+                                       st["batch"])
+                    b = roofline.bound_ms(cfg, shape, card=ctx["kind"])
+                    row = dict(arch=cfg.name, mode=st["mode"],
+                               batch=st["batch"], seq=st["seq"], ms=st["ms"],
+                               **b, bound_share=b["bound_ms"] / st["ms"])
+                    bounds.append(row)
+                    if st["ms"] < b["bound_ms"]:
+                        failures.append(f"{cfg.name} {st['mode']}: "
+                                        f"{st['ms']} ms under its bound "
+                                        f"{b['bound_ms']} ms")
+                # (c) the fabric bytes
+                t, runs = ctx["fl_mesh_runs"]
+                fabric = {}
+                for key, run in runs.items():
+                    rep = roofline.fl_mesh_report(
+                        "mamba2-370m", network="gaia",
+                        num_shards=run["shards"])
+                    want = roofline.fl_mesh_fabric_bytes(rep, run["backend"],
+                                                         t)
+                    fabric[key] = dict(read=run["fabric_bytes_per_round"],
+                                       report=want,
+                                       halo_rows_per_device=rep["halo_rows"],
+                                       per_shard_rows=rep["per_shard_rows"])
+                    if run["fabric_bytes_per_round"] != want:
+                        failures.append(f"fabric bytes {key}: read "
+                                        f"{run['fabric_bytes_per_round']}, "
+                                        f"report {want}")
+                if t != MAIN_SHAPE["t"]:
+                    failures.append(f"fl_mesh ran T={t}, not FEMNIST's")
+                # (b) the dry run's peaks
+                peaks = {}
+                measured = {st["arch"]: st["peak_bytes"]
+                            for st in ctx["timed_steps"]
+                            if st["mode"] == "train"}
+                for arch, fut in futures.items():
+                    dry = fut.result()
+                    ratio = measured[arch] / dry["peak_bytes"]
+                    peaks[arch] = dict(max_memory_allocated=measured[arch],
+                                       **dry, measured_over_dry=ratio)
+                    if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
+                        failures.append(f"{arch}: max_memory_allocated / dry"
+                                        f" peak {ratio} outside "
+                                        f"{DRY_PEAK_BAND}")
+            out, err = cli.communicate(timeout=600)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+        # (d) the CLIs
+        roof = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.roofline", tmp],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=120)
+        clis = dict(dryrun_rc=cli.returncode, dryrun_tail=err[-600:],
+                    roofline_rc=roof.returncode,
+                    table=roof.stdout.strip().splitlines(),
+                    seconds=time.perf_counter() - t0)
+    if cli.returncode or roof.returncode or len(clis["table"]) != 4:
+        failures.append(f"CLIs: {clis}")
+    emit(phase="launch_analysis", ok=not failures,
+         seconds=time.perf_counter() - t0, nvidia_smi=ctx["smi"],
+         bounds=bounds, dry_peaks=peaks, peak_band=DRY_PEAK_BAND,
+         fabric_bytes=fabric, clis=clis, failures=failures)
+    if failures:
+        raise AssertionError(f"launch_analysis: {failures}")
 
 
 def phase_run_fl_models(torch, ctx):
@@ -2094,22 +2262,28 @@ def _hold_fp32(torch, got, want32, kernel: str, what: str) -> dict:
     return dict(rel_l2=rel, row_rel_l2_max=row)
 
 
-def device_ms(torch, fn, iters: int, warmup: int = 3, name=None) -> float:
+def device_ms(torch, fn, iters: int, warmup: int = 3,
+              name=None) -> float | None:
     """Device time per call under the profiler: all kernels' time, or only
     those whose name contains ``name``. For calls too short to time with
-    events: back to back they would measure the host's launch rate."""
+    events: back to back they would measure the host's launch rate. A
+    profile that sees no such record is taken again, three times back to
+    back, then three times with a synchronise after each call: late in a
+    long process the profiler has dropped every record of back-to-back
+    short kernels while keeping those of synchronised calls (PERF.md).
+    After six blind profiles the reading is None (not measured; the
+    callers' CUDA-event times stand) and a line says so."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(3):  # now and then a profile comes back without kernels
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for sync_each in (False, False, False, True, True, True):
+        with profiled(torch) as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
+                if sync_each:
+                    torch.cuda.synchronize()
         kernels = [ev for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA]
         us = sum(ev.self_device_time_total for ev in kernels
@@ -2117,8 +2291,9 @@ def device_ms(torch, fn, iters: int, warmup: int = 3, name=None) -> float:
         if us > 0:
             return us / 1e3 / iters
         seen.append(len(kernels))
-    raise RuntimeError(f"the profiler saw no device time for {name!r} in "
-                       f"three profiles (device events per profile: {seen})")
+    emit(note="profiler_blind", kernel=name, iters=iters,
+         device_events_per_profile=seen)
+    return None
 
 
 def _fa_inputs(torch, case, gen, fused=False):
@@ -2373,13 +2548,11 @@ def device_ops_per_call(torch, fn, iters: int = 50) -> tuple:
     more of them as the process ages (PERF.md), so a reading can fall
     short of the truth; it cannot exceed it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen, names, blind = [], set(), 0
     while len(seen) < 3 and blind < 5:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled(torch) as prof:
             for _ in range(iters):
                 fn()
                 torch.cuda.synchronize()
@@ -2560,6 +2733,7 @@ def phase_llm_prefill(torch, ctx):
         raise AssertionError(f"prefill logits: kernel vs reference relative "
                              f"L2 {rel} > {LOGITS_REL_TOL}")
     ms = min(times) * 1e3
+    _timed(ctx, LLM_ARCH, "prefill", b, s, ms)
     emit(phase="llm_prefill", ok=True, arch=cfg.name,
          layers=cfg.num_layers, params=cfg.param_count(),
          param_bytes=_param_bytes(params), init_s=ctx["llm_init_s"],
@@ -2866,14 +3040,11 @@ def device_ms_by_kernel(torch, fn, iters: int, stem: str) -> dict:
     kernels now and then (PERF.md)."""
     import re
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
     out: dict = {}
     for ev in prof.key_averages():
         m = re.search(rf"({stem}\w*)", ev.key)
@@ -3102,6 +3273,7 @@ def _ssm_prefill(torch, ctx, arch, phase):
                 f"{SSM_LOGITS_REL_TOL[key][arch]}")
     torch.cuda.empty_cache()
     ms = min(times) * 1e3
+    _timed(ctx, arch, "prefill", b, s, ms)
     emit(phase=phase, ok=True, arch=cfg.name, layers=cfg.num_layers,
          shared_attn_apps=want["flash_attention"], params=cfg.param_count(),
          param_bytes=_param_bytes(params), init_s=init_s, batch=b, seq=s,
@@ -3305,7 +3477,6 @@ def _drive(torch, engine, requests, *, profile=False) -> dict:
     steps when a profile saw no device record (at most five times); they
     are left out of the times."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
     for r in requests:
         engine.submit(r)
     times, prof, blind = [], None, 0
@@ -3313,11 +3484,9 @@ def _drive(torch, engine, requests, *, profile=False) -> dict:
         if (profile and prof is None and blind < 5
                 and len(times) >= SERVE_PROFILE_AT):
             torch.cuda.synchronize()
-            with tprofile(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as p:
+            with profiled(torch) as p:
                 for _ in range(SERVE_PROFILE_STEPS):
                     engine.step()
-                torch.cuda.synchronize()
             ev = [e for e in p.key_averages()
                   if e.device_type == DeviceType.CUDA]
             if not ev:
@@ -3527,7 +3696,6 @@ def _fleet(torch, ctx, ckpt_dir) -> tuple:
                                      generate_requests, sweep_loads)
     from repro_torch.serving.engine import WARMUP_STEPS
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
     cfg = TrafficConfig(**FLEET_TRAFFIC)
     out, results, tokens, fleets = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
@@ -3593,11 +3761,9 @@ def _fleet(torch, ctx, ckpt_dir) -> tuple:
     seen = []
     for _ in range(3):
         before = eng.steps
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as p:
+        with profiled(torch) as p:
             for _ in range(4):
                 eng.step()
-            torch.cuda.synchronize()
         n = sum(e.count for e in p.key_averages()
                 if e.device_type == DeviceType.CUDA and "decode_attn" in e.key)
         if n:
@@ -3936,6 +4102,8 @@ def phase_llm_families(torch, ctx):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         pre = _family_prefill(torch, cfg, params)
+        _timed(ctx, arch, "prefill", pre["batch"], pre["seq"] - pre["prefix"],
+               pre["ms_per_prefill"])
         torch.cuda.empty_cache()
         wins = tf.layer_windows(cfg)
         fa = _fa_family_row(torch, ctx, cfg, int(wins.max()),
@@ -4055,6 +4223,7 @@ def _train_steps(torch, arch) -> dict:
                first_vs_loss_fn_rel=abs(losses[0] - direct) / abs(direct),
                ms_per_step=ms, ms_runs=[t * 1e3 for t in times],
                tokens_per_s=tokens / (ms / 1e3),
+               max_memory_allocated=peak,
                max_memory_allocated_gb=peak / 1e9, profile=profile)
     del params, state, holder
     torch.cuda.empty_cache()
@@ -4229,6 +4398,9 @@ def phase_llm_train(torch, ctx):
     torch.use_deterministic_algorithms(False)
     t0 = time.perf_counter()
     steps = {arch: _train_steps(torch, arch) for arch in TRAIN_ARCHS}
+    for arch, r in steps.items():
+        _timed(ctx, arch, "train", r["batch"], r["seq"], r["ms_per_step"],
+               peak_bytes=r["max_memory_allocated"])
     emit(phase="llm_train", part="train_step", steps=steps,
          nvidia_smi=ctx["smi"])
     for arch, r in steps.items():
@@ -4521,15 +4693,13 @@ def profile_window(torch, fn, iters: int, unprofiled_ms: float) -> dict:
     time per call, and the host operators with the most CPU time of their
     own."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / iters
+        wall = (time.perf_counter() - t0) * 1e3 / iters
     events = prof.key_averages()
     kern = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in events if ev.device_type == DeviceType.CUDA
@@ -4636,16 +4806,52 @@ def cycle_bench(torch, src: Path) -> int:
     return 0
 
 
+def profiler_bench(torch, seconds: float) -> int:
+    """``python3 chip_smoke.py --profiler-bench SECONDS`` profiles 20
+    launches of a short kernel about every 45 s for SECONDS, in a bare
+    window and in one padded as `profiled` pads it, with 25 s of 8192 x
+    8192 matrix products between samples; one JSON line a sample: the
+    kernel records each window saw, out of 20 (PROFILE_PAD_S's
+    evidence)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(256, 256, device="cuda")
+    work = torch.randn(8192, 8192, device="cuda")
+
+    def records(window) -> int:
+        with window as prof:
+            for _ in range(20):
+                torch.mul(x, 2.0)
+            torch.cuda.synchronize()
+        return sum(ev.device_type == DeviceType.CUDA for ev in prof.events())
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        bare = records(profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]))
+        emit(t_s=time.perf_counter() - t0, bare=bare,
+             padded=records(profiled(torch)), of=20)
+        end = time.perf_counter() + 25
+        while time.perf_counter() < end:
+            work @ work
+        torch.cuda.synchronize()
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 BENCHES = {"--decode-bench": decode_bench, "--ssd-bench": ssd_bench,
            "--cycle-bench": cycle_bench}
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in BENCHES:
+    if len(sys.argv) == 3 and (sys.argv[1] in BENCHES
+                               or sys.argv[1] == "--profiler-bench"):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
+        if sys.argv[1] == "--profiler-bench":
+            return profiler_bench(torch, float(sys.argv[2]))
         return BENCHES[sys.argv[1]](torch, Path(sys.argv[2]).resolve())
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4664,7 +4870,8 @@ def main() -> int:
               phase_hybrid_decode, phase_serving, phase_llm_families,
               phase_llm_train, phase_gossip_combine,
               phase_ring_gossip,
-              phase_run_fl_surface, phase_fl_mesh, phase_run_fl_models,
+              phase_run_fl_surface, phase_fl_mesh, phase_launch_analysis,
+              phase_run_fl_models,
               phase_topologies,
               phase_design_loop, phase_design_search]
     for phase in phases:

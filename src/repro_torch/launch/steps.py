@@ -178,14 +178,19 @@ def make_prefill_step(cfg: ModelConfig, *, impl: str = DEFAULT_IMPL):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, *, device_positions: bool = False):
-    """One-token decode through DEFAULT_IMPL: on the card, the CUDA
-    flash-decode kernel for every attention layer. (The reference's serve
-    step decodes with its plain attention and never reaches its decode
-    kernel.) `device_positions` is `decode_step`'s: the serving engine's
-    positions stay on the card, range-checked by the engine."""
+def make_serve_step(cfg: ModelConfig, *, device_positions: bool = False,
+                    impl: str = DEFAULT_IMPL):
+    """One-token decode through ``impl``, by default DEFAULT_IMPL: on the
+    card, the CUDA flash-decode kernel for every attention layer. (The
+    reference's serve step decodes with its plain attention and never
+    reaches its decode kernel; the dry run decodes with "chunked", whose
+    attention reads no lengths on the host.) `device_positions` is
+    `decode_step`'s: the serving engine's positions stay on the card,
+    range-checked by the engine."""
+    check_impl(impl)
+
     def serve_step(params, tokens, state):
-        return tf.decode_step(params, cfg, tokens, state, impl=DEFAULT_IMPL,
+        return tf.decode_step(params, cfg, tokens, state, impl=impl,
                               device_positions=device_positions)
 
     return serve_step

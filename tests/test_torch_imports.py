@@ -64,3 +64,18 @@ def test_mesh_and_lora_import_nothing_forbidden():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_launch_analysis_imports_nothing_forbidden():
+    """The launch analysis tools (specs, roofline, dry run, perf variants)
+    import alone without any of the forbidden packages."""
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.specs, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.perf\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
