@@ -8,18 +8,31 @@ Phases, each printing one JSON line:
 1. device: the card, as torch and nvidia-smi name it;
 2. build: nvcc builds every CUDA kernel from src/repro_torch/csrc, one
    process per source, all at once;
-3. edge_aggregate: the kernel against its plain PyTorch version on the
-   card, at the main path's shape (N=11 silos, 2E=22 directed edges of
-   the gaia multigraph, T=1,280,478 FEMNIST CNN parameters), on an
-   odd-width case with an isolated destination, and at the slice's
-   other shapes (EA_SHAPES: the Sent140 LSTM's T=5,070,882 and the
-   iNaturalist ResNet's T=11,685,170 over the multigraph, the ResNet on
-   MATCHA's complete base graph, 2E=110, and on the star, hub in-degree
-   10; FEMNIST's T over the multigraph of the generated 64-silo WAN,
-   N=64, 2E=128); the two must agree bit for bit. Times the kernel, the
-   plain version and one library call (`torch.addmm` over the dense
-   coefficient matrix, a yardstick the port never calls) beside the
-   least time the card could take, at every shape;
+3. edge_aggregate: the CSR kernel (`csrc/edge_aggregate.cu`) unfused
+   (`ops.edge_aggregate`) against its plain PyTorch version on an
+   odd-width case with an isolated destination and with no edges; then
+   fused (`ops.refresh_aggregate`: the strong edges' buffer refresh and
+   the aggregation in one launch) against its plain version, outputs
+   and refreshed buffers bit for bit, at the main path's shape (N=11
+   silos, 2E=22 directed edges of the gaia multigraph, T=1,280,478
+   FEMNIST CNN parameters) and the slice's other shapes (EA_SHAPES: the
+   Sent140 LSTM's T=5,070,882 and the iNaturalist ResNet's T=11,685,170
+   over the multigraph, the ResNet on MATCHA's complete base graph,
+   2E=110, and on the star, hub in-degree 10; FEMNIST's T over the
+   multigraph of the generated 64-silo WAN, N=64, 2E=128), and grouped
+   as the runtimes launch it: FEMNIST's CNN leaf by leaf (the legacy
+   runtime), reduced mamba2-370m's 12 leaves and its largest leaf on 4
+   gaia silos (`run_reduced_fl`), and FEMNIST's rows on 4 stacked
+   shards, pad rows and pad edges' buffers NaN (the mesh cycle, held
+   against the flat call too). Times the fused launch, the same run's
+   unfused path (`torch.where` of the refresh, then the CSR kernel),
+   the plain version and the library yardstick (the same `where`, then
+   `torch.addmm` over the dense coefficient matrix, TF32 off; the port
+   never calls it) beside the least time the card could take for this
+   round's strong mask, at every shape; each of the four in a replayed
+   CUDA graph over input copies out of L2 (the `kernels` rows) and by
+   events around eager calls (`*_eager_ms`); the grouped calls also one
+   segment a launch;
 4. run_fl: the main path, `repro_torch.fl.run_fl` for FEMNIST on gaia
    over the multigraph, two cycles (30 rounds) at full width on the
    card. Launch counts are zeroed just before and read just after; the
@@ -158,9 +171,8 @@ Phases, each printing one JSON line:
    equal `torch.einsum` of the consensus and the local updates bit for
    bit. `run_reduced_fl` at the CLI's defaults (mamba2-370m reduced, 4
    gaia silos, the multigraph, 30 rounds): one `edge_aggregate` launch
-   per leaf a round, finite losses, the simulated fields equal to the
-   same run's with device="cpu"; the kernel at the run's largest leaf
-   against its plain version, timed. `python -m repro_torch.serving`
+   a round for all leaves, finite losses, the simulated fields equal to
+   the same run's with device="cpu". `python -m repro_torch.serving`
    with only --ckpt-dir and --bench (trains, then serves): exit 0, and
    `python -m repro_torch.obs validate --bench` accepts its rows;
 18. gossip_combine: the kernel against its plain version, bit for bit
@@ -193,37 +205,35 @@ Phases, each printing one JSON line:
    plan's simulated spans, whose rounds end at the running sum of
    `cycle_times`. Then `runtime="legacy"` against the flat runtime at
    momentum 0 and 0.9 (bit-equal; the legacy round launches
-   `edge_aggregate` once per leaf a round), the "dense" aggregator
-   against the
-   kernel on the ring (bit-equal), FEMNIST on wan64 as in 4, and the
+   `edge_aggregate` once a round for all leaves), the "dense"
+   aggregator against the kernel on the ring (bit-equal), FEMNIST on
+   wan64 as in 4, and the
    cycle with metrics against without, in alternating turns; the wall
    time of a whole run per round (set-up included) for plain, hooked,
    hooked, plain runs, the hooked run's steady chunk from its trace, the
    checkpoint's write time and bytes;
-21. fl_mesh (deterministic algorithms on for (a) and (b)): the
+21. fl_mesh (deterministic algorithms on for (a) and (e)): the
    mesh-sharded runtime and LoRA deltas. (a) `run_fl` for FEMNIST on
    gaia at full width (batch 32, momentum 0.9, 30 rounds) on the flat
    runtime and on 1, 2, 4 and 8 stacked shards (`mesh=D`) with both
    gossip backends: every mesh run bit-equal to the flat run (losses,
    accuracies, final rows, buffers and momentum), its simulated clock
-   equal, D `edge_aggregate` launches a round; the gather-and-aggregate
-   stage alone bit-equal on identical random inputs with NaN in every
+   equal, one `edge_aggregate` launch a round for any D; the
+   gather-and-aggregate stage alone bit-equal on identical random
+   inputs with NaN in every
    pad row and pad edge buffer; silo 0's gradient by silos batched; ms a
    round, `fabric_bytes` and the shard axis's bytes a round of each.
    (e) `run_fl(mesh="auto")` in a one-rank NCCL process group
    (`GroupShards` with CUDA tensors), bit-equal to one stacked shard.
-   (b) every shard's `edge_aggregate` on its padded block at D = 4,
-   bit-equal to the flat aggregate's rows with NaN in its pad rows; one
-   shard timed beside its plain version, `addmm` and the bound of its
-   real edges (the `kernels` row with `path`). (c) `run_reduced_fl(mesh=2,
-   lora_rank=4)` at the CLI's defaults on the card (60 launches) and on
+   (c) `run_reduced_fl(mesh=2,
+   lora_rank=4)` at the CLI's defaults on the card (30 launches) and on
    the host from the same start: losses within LORA_LOSS_RTOL; its
    `lora_delta` checkpoint served by `RegionalFleet` on the card, each
    region's variant `apply_delta` of its mean delta bit for bit, the
    served tokens equal to those of a `full` twin of those variants. (d)
    LoRA rank 8 over mamba2-370m at full width and depth on 2 stacked
-   shards, 4 gaia silos, the first 4 rounds of the cycle: T_lora, ms a
-   round, peak memory, finite losses;
+   shards, 4 gaia silos, a 4-round warm-up call, then 20 rounds timed:
+   T_lora, ms a round, peak memory, finite losses;
 22. launch_analysis (no kernel launched): the launch analysis tools
    against the card's own readings. (a) Every prefill and train step
    timed above against its analytic bound on this card
@@ -272,7 +282,7 @@ Phases, each printing one JSON line:
    report, with each engine's seconds and the device grid's operations
    a round (the profiler's count at two round counts); (b)
    `CandidateScorer` over gaia / femnist's ring overlay at 6,400 rounds
-   on both backends for 16, 256 and 4,096 seeded random candidates, the
+   on both backends for 16, 256 and 1,024 seeded random candidates, the
    scores bit-equal, with candidates per second of each; (c)
    `population_search(gaia, femnist)` on both backends at the search
    CLI's --quick sizes (800 rounds, 6 iterations, pop 12, 4
@@ -422,83 +432,291 @@ def _csr_case(torch, rng, n, t, order, row_ptr, coeffs, diag, dev):
             torch.as_tensor(diag, device=dev))
 
 
-#: The slice's other edge_aggregate shapes: (network, workload, topology,
-#: T). On gaia, the LSTM and the ResNet over the multigraph (2E = 22), the
+#: The fused kernel's one-segment shapes, as the flat cycle calls it:
+#: (network, workload, topology, T). On gaia, FEMNIST's CNN (the main
+#: path), the LSTM and the ResNet over the multigraph (2E = 22), the
 #: ResNet on MATCHA's complete base graph (2E = 110, in-degree 10, many
 #: coefficients 0 in a round) and on the star (hub in-degree 10, leaves
 #: 1); FEMNIST over the multigraph of the generated 64-silo WAN (N = 64,
-#: 2E = 128).
+#: 2E = 128). Round 1 of each plan's cycle (its strong mask and weights).
 EA_SHAPES = {
+    "femnist_multigraph": ("gaia", "femnist", "multigraph", MAIN_SHAPE["t"]),
     "lstm_multigraph": ("gaia", "sentiment140", "multigraph", 5_070_882),
     "resnet_multigraph": ("gaia", "inaturalist", "multigraph", 11_685_170),
     "resnet_matcha": ("gaia", "inaturalist", "matcha", 11_685_170),
     "resnet_star": ("gaia", "inaturalist", "star", 11_685_170),
-    "femnist_wan64": ("wan64", "femnist", "multigraph", 1_280_478)}
+    "femnist_wan64": ("wan64", "femnist", "multigraph", MAIN_SHAPE["t"])}
+#: timed calls of the fused kernel at a shape (the main one: 50)
+EA_ITERS = 20
+#: the fused kernel's graph-replayed time cycles input copies of at
+#: least this many bytes together: twice the H100's 50 MB L2
+EA_COLD_BYTES = 100_000_000
 
 
-def _time_edge_aggregate(torch, ctx, args, dst_sorted, iters: int) -> dict:
-    """The kernel on ``args`` against its plain version (bit for bit),
-    timed beside the plain version, `torch.addmm` over the dense
-    coefficient matrix (a yardstick the port never calls) and the bound:
-    every input read once (all 2E buffer rows, zero coefficients
-    included: the kernel's result depends on each) and the output
-    written once, over the card's HBM rate, against its fp32 flops."""
+def _on(torch, a, dtype=None):
+    return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+
+def _flat_segment(torch, plan, k: int, n: int, t: int, gen):
+    """Round k of ``plan`` at width t as the flat cycle hands it to the
+    fused kernel: rows and dst-sorted buffers drawn on the card, and the
+    edges' destinations."""
     from repro_torch.kernels.gossip_combine import ops
-    from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
-    w, buf, coeffs, rp, diag = args
-    n, t = w.shape
-    e2 = buf.shape[0]
-    got = ops.edge_aggregate(*args)
-    want = edge_aggregate_ref(*args)
+    from repro_torch.kernels.gossip_combine.ref import Segment
+
+    order, rp = ops.csr_sort(plan.dst, n)
+    seg = Segment(torch.randn((n, t), generator=gen, device="cuda"),
+                  torch.randn((len(order), t), generator=gen, device="cuda"),
+                  _on(torch, plan.coeffs[k][order]), _on(torch, rp),
+                  _on(torch, plan.diag[k]),
+                  src=_on(torch, plan.src[order], torch.int32),
+                  strong=_on(torch, plan.strong[k][order]))
+    return seg, plan.dst[order]
+
+
+def _leaf_segments(torch, plan, k: int, n: int, sizes, gen):
+    """Round k of ``plan`` as `fl_round_step` hands it over: one segment a
+    leaf of ``sizes`` elements, the buffers in the plan's edge order
+    (``edge_row``), the edge tables shared."""
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.kernels.gossip_combine.ref import Segment
+
+    order, rp = ops.csr_sort(plan.dst, n)
+    shared = dict(coeffs=_on(torch, plan.coeffs[k][order]),
+                  row_ptr=_on(torch, rp), diag=_on(torch, plan.diag[k]),
+                  src=_on(torch, plan.src[order], torch.int32),
+                  strong=_on(torch, plan.strong[k][order]),
+                  edge_row=_on(torch, order, torch.int32))
+    segs = [Segment(w=torch.randn((n, t), generator=gen, device="cuda"),
+                    buf=torch.randn((len(order), t), generator=gen,
+                                    device="cuda"), **shared)
+            for t in sizes]
+    return segs, [plan.dst[order]] * len(segs)
+
+
+def _same(torch, a, b) -> bool:
+    """Equal, NaN where NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def _mesh_segments(torch, plan, k: int, n: int, t: int, d: int, gen):
+    """Round k of ``plan`` as the mesh cycle on ``d`` stacked shards hands
+    it to the fused kernel: one segment a shard's padded block, its fresh
+    rows gathered as the cycle's CSR gather gives them, NaN in the pad
+    rows and pad edges' buffer rows (never read or written). Each shard's
+    real rows and edge buffers are held against the flat call on the same
+    rows, bit for bit."""
+    import numpy as np
+    from repro_torch.fl import mesh as flmesh
+    from repro_torch.fl import runtime as flrt
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.kernels.gossip_combine.ref import Segment
+
+    rt = flrt.make_flat_runtime(plan, {"w": torch.empty(t, device="meta")},
+                                n)
+    mrt = flmesh.make_mesh_runtime(rt, d, device="cuda")
+    per, e_per = mrt.per_rows, mrt.edges_per_shard
+    rows = mrt.mspec.rows_padded
+    flat, _ = _flat_segment(torch, plan, k, n, t, gen)
+    nan = torch.full((1, t), float("nan"), device="cuda")
+    w = torch.cat([flat.w, nan.expand(rows - n, t)])
+    perm = _on(torch, mrt.edge_perm)
+    buf = torch.cat([flat.buf, nan])[perm]
+    coeffs = torch.cat([flat.coeffs, flat.coeffs.new_zeros(1)])[perm]
+    strong = torch.cat([flat.strong, flat.strong.new_zeros(1)])[perm]
+    diag = torch.cat([flat.diag, flat.diag.new_ones(rows - n)])
+    segs = [Segment(w[p * per:(p + 1) * per],
+                    buf[p * e_per:(p + 1) * e_per],
+                    coeffs[p * e_per:(p + 1) * e_per],
+                    _on(torch, mrt.shard_row_ptr(p)),
+                    diag[p * per:(p + 1) * per],
+                    fresh=w[_on(torch, mrt.src_global[p]).long()],
+                    strong=strong[p * e_per:(p + 1) * e_per])
+            for p in range(d)]
+    flat_buf = flat.buf.clone()
+    want, = ops.refresh_aggregate([flat._replace(buf=flat_buf)])
+    trial = [s._replace(buf=s.buf.clone()) for s in segs]
+    outs = torch.cat(ops.refresh_aggregate(trial))[:n]
+    real = np.flatnonzero(mrt.edge_perm < len(plan.dst))
+    bufs = torch.cat([s.buf for s in trial])[_on(torch, real)]
+    if not (torch.equal(outs, want) and torch.equal(
+            bufs, flat_buf[_on(torch, mrt.edge_perm[real])])):
+        raise AssertionError(f"mesh D={d}: the shards' fused outputs or "
+                             "buffers differ from the flat call's")
+    dst = [mrt.dst_local[p, :mrt.edge_counts[p]] for p in range(d)]
+    return segs, dst, dict(shards=d, per=per, e_per=e_per,
+                           real_edges=mrt.edge_counts.tolist())
+
+
+def _fused_work(segs) -> tuple[int, int]:
+    """(bytes, flops) the fused call needs on these inputs: each row of w
+    read once, each weak buffer row read once, each strong buffer row
+    written once, each strong edge's fresh row read once where fresh is
+    not w (a row of w is read once either way), the output rows written
+    once, and the edge tables read once; two flops per edge element and
+    per row element of diag*w. The strong masks are this run's."""
+    nbytes = flops = 0
+    for s in segs:
+        n, t = s.w.shape
+        rp = s.row_ptr.tolist()
+        e = rp[-1] - rp[0]
+        strong = int(s.strong[rp[0]:rp[-1]].sum()) if s.strong is not None \
+            else 0
+        fresh = strong if s.fresh is not None else 0
+        tables = 4 * (e + 2 * n + 1) + e * (
+            4 * (s.src is not None) + (s.strong is not None)
+            + 4 * (s.edge_row is not None))
+        nbytes += (2 * n + e + fresh) * t * 4 + tables
+        flops += 2 * (e + n) * t
+    return nbytes, flops
+
+
+def _time_fused(torch, ctx, segs, dsts, iters: int) -> dict:
+    """The fused kernel's one call over ``segs`` against its plain version
+    (outputs and refreshed buffers, NaN where NaN), then timed. Every
+    ``*_ms`` of the row is device time per call in a replayed CUDA graph
+    (`graph_ms`: the host's launch rate, which the small shapes would
+    measure otherwise, stays out) cycling copies of the inputs that
+    together pass EA_COLD_BYTES, so that each call finds its inputs out
+    of L2: ``ms`` the fused kernel; ``where_edge_aggregate_ms`` the same
+    run's unfused path (`torch.where` of the refresh, then the CSR
+    kernel, segment by segment: what the runtimes did before);
+    ``plain_ms`` the plain version's device work
+    (`prepare_refresh_aggregate`, its host reads made before the
+    capture); ``library_ms`` the library yardstick (the same `where`,
+    then `torch.addmm` over the dense coefficient matrix, TF32 off; the
+    port never calls it). Each has a ``*_eager_ms`` twin: back-to-back
+    calls on one set of inputs, by events, host work included. The bound
+    is `_fused_work` over the card's HBM rate and fp32 rate. NaN in
+    buffer rows the call never reads is zeroed before the timing, so
+    that `addmm` stays finite."""
+    from repro_torch.kernels.gossip_combine import ops
+    from repro_torch.kernels.gossip_combine.ref import (
+        prepare_refresh_aggregate, refresh_aggregate_ref)
+
+    plain = [s._replace(buf=s.buf.clone()) for s in segs]
+    before = ops.edge_aggregate.launches
+    got = ops.refresh_aggregate(segs)
+    want = refresh_aggregate_ref(plain)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"edge_aggregate (N={n}, 2E={e2}, T={t}): "
-                             f"kernel and plain version differ, max |diff| "
-                             f"{err}")
-    del got, want
-    cmat = torch.zeros((n, e2), device=w.device)
-    cmat[torch.as_tensor(dst_sorted, device=w.device).long(),
-         torch.arange(e2, device=w.device)] = coeffs
+    if ops.edge_aggregate.launches != before + 1:
+        raise AssertionError(f"{len(segs)} segments took "
+                             f"{ops.edge_aggregate.launches - before} "
+                             "launches, not one")
+    err = 0.0
+    for g, (a, b, s, p) in enumerate(zip(got, want, segs, plain)):
+        if not (_same(torch, a, b) and _same(torch, s.buf, p.buf)):
+            raise AssertionError(
+                f"refresh_aggregate segment {g} of {len(segs)} (N, T = "
+                f"{tuple(s.w.shape)}): kernel and plain version differ")
+        err = max(err, float((a - b).nan_to_num().abs().max()))
+    del got, want, plain
+    for s in segs:
+        for x in (s.w, s.buf, s.fresh):
+            if x is not None:
+                torch.nan_to_num_(x, nan=0.0)
+    index = [(s.src.long() if s.src is not None else None,
+              s.edge_row.long() if s.edge_row is not None else None)
+             for s in segs]
+
+    def refreshed(s, src, rows):
+        fresh = s.w if s.fresh is None else s.fresh
+        return torch.where(s.strong[:, None],
+                           fresh if src is None else fresh[src],
+                           s.buf if rows is None else s.buf[rows])
+
+    def unfused(c):
+        return [ops.edge_aggregate(s.w, refreshed(s, *ix), s.coeffs,
+                                   s.row_ptr, s.diag)
+                for s, ix in zip(c, index)]
+
+    cmats = []
+    for s, dst in zip(segs, dsts):
+        e = len(dst)
+        cm = torch.zeros((s.w.shape[0], s.coeffs.shape[0]), device="cuda")
+        cm[_on(torch, dst).long(), torch.arange(e, device="cuda")] = \
+            s.coeffs[:e]
+        cmats.append(cm)
+
+    def library(c):
+        return [torch.addmm(s.diag[:, None] * s.w, cm, refreshed(s, *ix))
+                for s, cm, ix in zip(c, cmats, index)]
+
+    bw, fp32, _ = card_rates(ctx["kind"])
+    nbytes, flops = _fused_work(segs)
+    # copies of the inputs, cycled, so that each call finds its own cold
+    copies = [segs] + [[s._replace(**{k: getattr(s, k).clone() for k in (
+        "w", "buf", "fresh") if getattr(s, k) is not None}) for s in segs]
+        for _ in range(math.ceil(EA_COLD_BYTES / nbytes) - 1)]
+    cold = lambda fn, replays=5: graph_ms(
+        torch, [lambda c=c: fn(c) for c in copies], replays)
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    lib_diff = float((torch.addmm(diag[:, None] * w, cmat, buf)
-                      - ops.edge_aggregate(*args)).abs().max())
-    kernel_ms = cuda_ms(torch, lambda: ops.edge_aggregate(*args), iters)
-    plain_ms = cuda_ms(torch, lambda: edge_aggregate_ref(*args),
-                       max(2, iters // 5))
-    library_ms = cuda_ms(
-        torch, lambda: torch.addmm(diag[:, None] * w, cmat, buf), iters)
+    lib_diff = max(float((a - b).abs().max())
+                   for a, b in zip(library(segs), ops.refresh_aggregate(segs)))
+    row = dict(
+        max_abs_err=err, ms=cold(ops.refresh_aggregate),
+        plain_ms=graph_ms(torch, [prepare_refresh_aggregate(c)
+                                  for c in copies], 1),
+        library_ms=cold(library), where_edge_aggregate_ms=cold(unfused),
+        eager_ms=cuda_ms(torch, lambda: ops.refresh_aggregate(segs), iters),
+        plain_eager_ms=cuda_ms(torch, lambda: refresh_aggregate_ref(segs),
+                               max(2, iters // 5)),
+        library_eager_ms=cuda_ms(torch, lambda: library(segs), iters),
+        where_edge_aggregate_eager_ms=cuda_ms(torch, lambda: unfused(segs),
+                                              iters),
+        library_max_abs_diff=lib_diff)
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-    bw, fp32, _ = card_rates(ctx["kind"])
-    nbytes = (e2 + 2 * n) * t * 4 + e2 * 4 + (n + 1) * 4 + n * 4
-    flops = (2 * e2 + 2 * n) * t
     bytes_ms, ops_ms = nbytes / bw * 1e3, flops / fp32 * 1e3
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms, library_max_abs_diff=lib_diff,
-                bytes=nbytes, flops=flops,
-                achieved_gb_per_s=nbytes / kernel_ms / 1e6)
+    bound = max(bytes_ms, ops_ms)
+    kernel_ms = row["ms"]
+    row.update(bound_ms=bound,
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               faster_than_where_edge_aggregate=(
+                   kernel_ms < row["where_edge_aggregate_ms"]
+                   and row["eager_ms"] < row["where_edge_aggregate_eager_ms"]),
+               bound_share=bound / kernel_ms, bytes=nbytes, flops=flops,
+               achieved_gb_per_s=nbytes / kernel_ms / 1e6)
+    if len(segs) > 1:
+        row.update(
+            per_segment_ms=cold(
+                lambda c: [ops.refresh_aggregate([s]) for s in c]),
+            per_segment_eager_ms=cuda_ms(
+                torch, lambda: [ops.refresh_aggregate([s]) for s in segs],
+                iters))
+        row["grouped_faster"] = (
+            row["ms"] < row["per_segment_ms"]
+            and row["eager_ms"] < row["per_segment_eager_ms"])
+    return row
 
 
 def phase_edge_aggregate(torch, ctx):
+    """The CSR kernel unfused (`ops.edge_aggregate`) on odd widths, an
+    isolated destination and no edges; then the fused kernel
+    (`ops.refresh_aggregate`) at EA_SHAPES, one segment each, and grouped
+    as the runtimes call it: FEMNIST's CNN leaf by leaf (the legacy
+    runtime), reduced mamba2-370m's leaves on 4 gaia silos (`run_reduced_fl`)
+    and FEMNIST's rows on MESH_ROW_SHARDS stacked shards (the mesh cycle),
+    each bit-equal to its plain version and timed (`_time_fused`); the
+    grouped calls also one segment a launch."""
     import numpy as np
-    from repro_torch.core.delay import FEMNIST, WORKLOADS
+    from repro_torch.configs import get_config, reduce
+    from repro_torch.core.delay import WORKLOADS
     from repro_torch.fl.dpasgd import make_round_schedule
     from repro_torch.kernels.gossip_combine import ops
     from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import tree_leaves
+    from repro_torch.models.small import SMALL_MODELS
     from repro_torch.networks.registry import get_network
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    gaia = get_network("gaia")
-    plan, _ = make_round_schedule("multigraph", gaia, FEMNIST)
-    n, t = MAIN_SHAPE["n"], MAIN_SHAPE["t"]
-    order, row_ptr = ops.csr_sort(plan.dst, n)
-    main = _csr_case(torch, rng, n, t, order, row_ptr,
-                     plan.coeffs[1], plan.diag[1], dev)
-    # odd width, destination 0 isolated, ragged last tile
+    n = MAIN_SHAPE["n"]
+    # odd width, destination 0 isolated, ragged last tile; and no edges
     dst = rng.integers(1, n, size=20)
     o2, rp2 = ops.csr_sort(dst, n)
     odd = _csr_case(torch, rng, n, 4099, o2, rp2,
@@ -517,48 +735,73 @@ def phase_edge_aggregate(torch, ctx):
                                  f"version differ, max |diff| {errs[name]}")
     if not torch.equal(ops.edge_aggregate(*odd)[0], odd[4][0] * odd[0][0]):
         raise AssertionError("isolated destination is not diag*w")
-    row = _time_edge_aggregate(torch, ctx, main, plan.dst[order], 50)
-    errs["main"] = row["max_abs_err"]
-    ctx["edge_aggregate"] = {k: row[k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-    ctx["edge_aggregate"]["max_abs_err"] = max(errs.values())
-    del main, odd, no_edges
+    del odd, no_edges
 
-    # The slice's other shapes, inputs drawn on the card.
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = {}
     for name, (network, wl, topology, width) in EA_SHAPES.items():
         net = get_network(network)
-        n = net.num_silos
         p, _ = make_round_schedule(topology, net, WORKLOADS[wl],
                                    rounds=ROUNDS)
-        o, rp = ops.csr_sort(p.dst, n)
         k = 1 % p.num_rounds_cycle
-        e2 = len(p.dst)
-        args = (torch.randn((n, width), generator=gen, device=dev),
-                torch.randn((e2, width), generator=gen, device=dev),
-                torch.as_tensor(p.coeffs[k][o], device=dev),
-                torch.as_tensor(rp, device=dev),
-                torch.as_tensor(p.diag[k], device=dev))
+        seg, dst_sorted = _flat_segment(torch, p, k, net.num_silos, width,
+                                        gen)
+        rp = seg.row_ptr.tolist()
         shapes[name] = dict(
-            network=network, n=n, e2=e2, t=width,
+            network=network, n=net.num_silos, e2=len(p.dst), t=width,
             max_in_degree=int(np.diff(rp).max()),
             nonzero_coeffs=int((p.coeffs[k] != 0).sum()),
-            **_time_edge_aggregate(torch, ctx, args, p.dst[o], 20))
-        del args
+            strong_edges=int(p.strong[k].sum()),
+            **_time_fused(torch, ctx, [seg], [dst_sorted],
+                          50 if name == "femnist_multigraph" else EA_ITERS))
+        del seg
         torch.cuda.empty_cache()
+
+    gaia = get_network("gaia")
+    groups = {}
+    plan, _ = make_round_schedule("multigraph", gaia, WORKLOADS["femnist"])
+    cnn = [x.numel() for x in tree_leaves(SMALL_MODELS["femnist_cnn"].init(
+        torch.Generator().manual_seed(0)))]
+    segs, dsts = _leaf_segments(torch, plan, 1, gaia.num_silos, cnn, gen)
+    groups["femnist_cnn_leaves"] = dict(
+        n=gaia.num_silos, e2=len(plan.dst), leaves=len(cnn), t=cnn,
+        **_time_fused(torch, ctx, segs, dsts, 50))
+    cfg = train.TrainConfig()
+    net4 = train._sub_network(train.get_network(cfg.network), cfg.silos)
+    plan4, _ = make_round_schedule("multigraph", net4, WORKLOADS["femnist"],
+                                   t=cfg.t, rounds=cfg.rounds)
+    sizes = [x.numel() for x in tree_leaves(train.initial_params(
+        reduce(get_config(cfg.arch)), 0, "cpu"))]
+    segs, dsts = _leaf_segments(torch, plan4, 1, net4.num_silos, sizes, gen)
+    largest = max(segs, key=lambda s: s.w.shape[1])
+    groups["mamba2_largest_leaf"] = dict(
+        n=net4.num_silos, e2=len(plan4.dst), t=max(sizes),
+        **_time_fused(torch, ctx, [largest], dsts[:1], 50))
+    groups["mamba2_leaves"] = dict(
+        n=net4.num_silos, e2=len(plan4.dst), leaves=len(sizes), t=sizes,
+        **_time_fused(torch, ctx, segs, dsts, 50))
+    segs, dsts, layout = _mesh_segments(torch, plan, 1, gaia.num_silos,
+                                        MAIN_SHAPE["t"], MESH_ROW_SHARDS, gen)
+    groups["mesh_shards"] = dict(n=gaia.num_silos, e2=len(plan.dst),
+                                 t=MAIN_SHAPE["t"], **layout,
+                                 **_time_fused(torch, ctx, segs, dsts, 50))
+    del segs
+    torch.cuda.empty_cache()
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    main = shapes["femnist_multigraph"]
+    ctx["edge_aggregate"] = {k: main[k] for k in keys}
+    ctx["edge_aggregate"]["max_abs_err"] = max(
+        [main["max_abs_err"], *errs.values()])
     ctx["edge_aggregate_shapes"] = shapes
+    ctx["edge_aggregate_rows"] = {
+        name: {k: row[k] for k in keys} for name, row in groups.items()}
     bw, fp32, rate_key = card_rates(ctx["kind"])
-    emit(phase="edge_aggregate", ok=True,
-         shape=dict(n=MAIN_SHAPE["n"], e2=len(plan.dst), t=t),
-         max_abs_diff=errs,
-         kernel_ms=row["ms"], plain_ms=row["plain_ms"],
-         library_ms=row["library_ms"],
-         library_max_abs_diff=row["library_max_abs_diff"],
-         bound_ms=row["bound_ms"], bytes=row["bytes"], flops=row["flops"],
+    emit(phase="edge_aggregate", ok=True, seconds=time.perf_counter() - t0,
+         unfused_max_abs_diff=errs,
          rates=dict(card=rate_key, hbm_bytes_per_s=bw, fp32_flop_per_s=fp32),
-         achieved_gb_per_s=row["achieved_gb_per_s"], shapes=shapes,
-         nvidia_smi=ctx["smi"])
+         shapes=shapes, groups=groups, nvidia_smi=ctx["smi"])
 
 
 def _deterministic(torch) -> None:
@@ -867,14 +1110,10 @@ def _legacy_vs_flat(torch, ctx) -> dict:
     at momentum 0 and 0.9: losses and accuracies bit-equal (the vmapped
     convolutions copy the flat runtime's weight views into contiguous
     tensors, so cuDNN sees the legacy runtime's layouts). The legacy
-    round aggregates leaf by leaf through `edge_aggregate`: one launch
-    per leaf a round."""
+    round refreshes and aggregates all its leaves in one launch of the
+    fused kernel a round."""
     from repro_torch.fl import FLConfig
-    from repro_torch.launch.mesh import tree_leaves
-    from repro_torch.models.small import SMALL_MODELS
 
-    leaves = len(tree_leaves(SMALL_MODELS["femnist_cnn"].init(
-        torch.Generator().manual_seed(0))))
     out = {}
     for momentum in (0.0, 0.9):
         kw = dict(dataset="femnist", network="gaia", topology="multigraph",
@@ -887,10 +1126,10 @@ def _legacy_vs_flat(torch, ctx) -> dict:
             max_abs_loss_diff=max(abs(x - y) for x, y in zip(a, b)),
             legacy_launches=launches, eval_accs=legacy.eval_accs,
             ms_per_round=[flat_s / ROUNDS * 1e3, legacy_s / ROUNDS * 1e3])
-        if launches != leaves * ROUNDS:
+        if launches != ROUNDS:
             raise AssertionError(f"the legacy runtime launched "
-                                 f"edge_aggregate {launches} times, not "
-                                 f"{leaves} leaves x {ROUNDS} rounds")
+                                 f"edge_aggregate {launches} times in "
+                                 f"{ROUNDS} rounds")
         ctx["launches"]["edge_aggregate_legacy"] = launches
         if a != b or flat.eval_accs != legacy.eval_accs:
             raise AssertionError(
@@ -1104,68 +1343,11 @@ def _silo_grad_by_batch(torch, cfg, sizes) -> dict:
     return out
 
 
-def _mesh_kernel_row(torch, ctx, rt, d: int) -> dict:
-    """One shard's `edge_aggregate` on its padded block at the run's
-    width, D = ``d``: every shard's output against the same rows of the
-    flat aggregate, bit for bit, with NaN in the pad edges' buffer rows
-    (so a pad that were read would show); then the shard with the most
-    pad rows timed on its block (pads zeroed), beside its plain version,
-    `addmm` and the bound of what it reads: its real edges only."""
-    from repro_torch.fl import mesh as flmesh
-    from repro_torch.kernels.gossip_combine import ops
-    from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
-
-    n, t = rt.num_silos, rt.spec.size
-    mrt = flmesh.make_mesh_runtime(rt, d, device="cuda")
-    per, e_per = mrt.per_rows, mrt.edges_per_shard
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    w = torch.randn((mrt.mspec.rows_padded, t), generator=gen, device="cuda")
-    buf = torch.randn((len(rt.dst_sorted), t), generator=gen, device="cuda")
-    k = 1 % rt.num_rounds_cycle
-    dev = lambda x: torch.as_tensor(x, device="cuda")
-    coeffs, diag = dev(rt.coeffs[k]), dev(rt.diag[k])
-    want = ops.edge_aggregate(w[:n], buf, coeffs, dev(rt.row_ptr), diag)
-    perm = dev(mrt.edge_perm)
-    bp = torch.cat([buf, torch.full((1, t), float("nan"),
-                                    device="cuda")])[perm]
-    cp = torch.cat([coeffs, coeffs.new_zeros(1)])[perm]
-    dp = torch.cat([diag, diag.new_ones(mrt.mspec.rows_padded - n)])
-    blocks = []
-    for p in range(d):
-        args = (w[p * per:(p + 1) * per], bp[p * e_per:(p + 1) * e_per],
-                cp[p * e_per:(p + 1) * e_per], dev(mrt.shard_row_ptr(p)),
-                dp[p * per:(p + 1) * per])
-        got = ops.edge_aggregate(*args)
-        real = max(0, min(per, n - p * per))
-        if not torch.equal(got[:real], want[p * per:p * per + real]):
-            raise AssertionError(f"mesh: shard {p} of {d}'s edge_aggregate "
-                                 "differs from the flat aggregate's rows")
-        blocks.append(args)
-    p = max(range(d), key=lambda q: (e_per - mrt.edge_counts[q],
-                                     mrt.edge_counts[q]))
-    c = int(mrt.edge_counts[p])
-    w_p, b_p, c_p, rp_p, d_p = blocks[p]
-    b_p = torch.nan_to_num(b_p, nan=0.0)
-    args = (w_p, b_p, c_p, rp_p, d_p)
-    ms = cuda_ms(torch, lambda: ops.edge_aggregate(*args), 50)
-    dst = mrt.dst_local[p, :c]
-    real = _time_edge_aggregate(torch, ctx, (w_p, b_p[:c], c_p[:c], rp_p,
-                                             d_p), dst, 50)
-    plain = edge_aggregate_ref(*args)
-    if not torch.equal(ops.edge_aggregate(*args), plain):
-        raise AssertionError("mesh: the shard's kernel and plain version "
-                             "differ on its padded block")
-    return dict(shards=d, shard=p, per=per, e_per=e_per, real_edges=c,
-                t=t, ms=ms, real_edges_ms=real["ms"],
-                **{k: real[k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                        "library_ms", "max_abs_err")})
-
-
 def _mesh_femnist(torch, ctx) -> dict:
     """(a) and (e): `run_fl` on FEMNIST at full width over the flat
     runtime, then on MESH_SHARDS stacked shards with both backends, each
-    held against the flat run: simulated seconds equal, D launches a
-    round, and bit-equal losses, accuracies, rows, buffers and momentum;
+    held against the flat run: simulated seconds equal, one launch a
+    round for any D, and bit-equal losses, accuracies, rows, buffers and momentum;
     the gather-and-aggregate stage alone bit-equal on identical inputs
     for every case. Beside them, silo 0's gradient by the number of silos
     one `vmap` call batches (`_silo_grad_by_batch`): cuDNN picks another
@@ -1208,7 +1390,7 @@ def _mesh_femnist(torch, ctx) -> dict:
                 stage_bit_equal=_mesh_stage(torch, flat["rt"], d, backend))
             row["bit_equal"] = (row["losses_equal"] and row["accs_equal"]
                                 and not any(diff.values()))
-            if r["launches"] != d * ROUNDS:
+            if r["launches"] != ROUNDS:
                 failures.append(f"{d}/{backend}: {r['launches']} launches")
             if (res.cycle_times_ms != f_res.cycle_times_ms
                     or res.total_time_s != f_res.total_time_s):
@@ -1321,8 +1503,8 @@ def _lora_serving(torch, ckpt_dir) -> dict:
 
 def _mesh_lora(torch, tmp: Path) -> dict:
     """(c) `run_reduced_fl` with LORA_TRAIN at the CLI's defaults on the
-    card (launch count zeroed just before and read just after: D per
-    round) and on the host from the same start (the base and delta_0 are
+    card (launch count zeroed just before and read just after: one a
+    round for both shards) and on the host from the same start (the base and delta_0 are
     host draws): losses within LORA_LOSS_RTOL relative, simulated seconds
     equal; its checkpoint served (`_lora_serving`)."""
     import dataclasses
@@ -1341,9 +1523,9 @@ def _mesh_lora(torch, tmp: Path) -> dict:
     cpu_s = time.perf_counter() - t0
     rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
                                                   cpu["losses"]))
-    if launches != LORA_TRAIN["mesh"] * cfg.rounds:
-        raise AssertionError(f"lora run: {launches} launches, not "
-                             f"{LORA_TRAIN['mesh']} x {cfg.rounds}")
+    if launches != cfg.rounds:
+        raise AssertionError(f"lora run: {launches} launches in "
+                             f"{cfg.rounds} rounds")
     if _not_finite(card["losses"]) or rel > LORA_LOSS_RTOL:
         raise AssertionError(f"lora run: card losses {rel} relative from "
                              f"the host's (limit {LORA_LOSS_RTOL})")
@@ -1365,8 +1547,8 @@ def _mesh_lora_full(torch) -> dict:
     over the first LORA_FULL["warm_rounds"] rounds of the multigraph
     cycle, then the whole cycle in one call, timed (synchronised): T_lora,
     ms a round of the whole cycle (and of the warm-up call, which
-    includes first-call allocations), peak memory, finite losses,
-    launches = shards x rounds in each call."""
+    includes first-call allocations), peak memory, finite losses, one
+    launch a round in each call."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.delay import WORKLOADS
@@ -1421,7 +1603,7 @@ def _mesh_lora_full(torch) -> dict:
         losses = losses.tolist()
         secs = time.perf_counter() - t0
         launches = ops.edge_aggregate.launches
-        if _not_finite(losses) or launches != c["mesh"] * r:
+        if _not_finite(losses) or launches != r:
             raise AssertionError(f"lora at full width: losses {losses}, "
                                  f"{launches} launches over {r} rounds")
         return state, losses, secs, launches
@@ -1443,10 +1625,10 @@ def _mesh_lora_full(torch) -> dict:
 
 def phase_fl_mesh(torch, ctx):
     """The mesh-sharded runtime and LoRA deltas on the card: (a) and (e)
-    `_mesh_femnist` and (b) `_mesh_kernel_row` with deterministic
-    algorithms on; (c) `_mesh_lora` and (d) `_mesh_lora_full` without, as
-    the other LLM phases run. No profile. One line a part, its seconds in
-    it."""
+    `_mesh_femnist` with deterministic algorithms on; (c) `_mesh_lora`
+    and (d) `_mesh_lora_full` without, as the other LLM phases run (the
+    fused kernel on the shard blocks is timed in phase edge_aggregate).
+    No profile. One line a part, its seconds in it."""
     import tempfile
 
     _deterministic(torch)
@@ -1455,11 +1637,6 @@ def phase_fl_mesh(torch, ctx):
     ctx["fl_mesh_runs"] = (rt.spec.size, femnist["runs"])
     emit(phase="fl_mesh", part="femnist", nvidia_smi=ctx["smi"],
          seconds=time.perf_counter() - t0, **femnist)
-    t1 = time.perf_counter()
-    row = _mesh_kernel_row(torch, ctx, rt, MESH_ROW_SHARDS)
-    ctx["edge_aggregate_mesh"] = row
-    emit(phase="fl_mesh", part="kernel_row", seconds=time.perf_counter() - t1,
-         **row)
     torch.use_deterministic_algorithms(False)
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4288,16 +4465,15 @@ def _not_finite(losses) -> bool:
 def _reduced_fl(torch, ctx) -> dict:
     """`run_reduced_fl` at the CLI's defaults (mamba2-370m reduced, 4 gaia
     silos, the multigraph, 30 rounds) on the card, the launch count
-    zeroed just before and read just after: one `edge_aggregate` launch
-    per leaf a round; then the same config with device="cpu", whose
-    simulated fields must be equal exactly (host numpy). A generator on
-    the card draws other initial weights than one on the host, so the
-    card runs once more from the host run's initial weights: its losses
-    must lie within TRAIN_LOSS_RTOL of the host run's. Then the kernel
-    against its plain version at the run's largest leaf, timed."""
-    import numpy as np
+    zeroed just before and read just after: one launch of the fused
+    kernel a round for all leaves; then the same config with
+    device="cpu", whose simulated fields must be equal exactly (host
+    numpy). A generator on the card draws other initial weights than one
+    on the host, so the card runs once more from the host run's initial
+    weights: its losses must lie within TRAIN_LOSS_RTOL of the host
+    run's. (The kernel over the run's leaves is timed in phase
+    edge_aggregate.)"""
     from repro_torch.configs import get_config, reduce
-    from repro_torch.fl.dpasgd import make_round_schedule
     from repro_torch.kernels.gossip_combine import ops
     from repro_torch.launch import train
     from repro_torch.launch.mesh import tree_leaves, tree_map
@@ -4320,30 +4496,18 @@ def _reduced_fl(torch, ctx) -> dict:
         train.initial_params = draw
     same_rel = max(abs(a - b) / abs(b)
                    for a, b in zip(same["losses"], cpu["losses"]))
-    mcfg = reduce(get_config(cfg.arch))
-    leaves = tree_leaves(train.initial_params(mcfg, 0, "cpu"))
-    sizes = [x.numel() for x in leaves]
-    net = train._sub_network(train.get_network(cfg.network), cfg.silos)
-    plan, _ = make_round_schedule("multigraph", net, train.WORKLOADS[
-        "femnist"], t=cfg.t, rounds=cfg.rounds)
-    order, row_ptr = ops.csr_sort(plan.dst, net.num_silos)
-    args = _csr_case(torch, np.random.default_rng(2), net.num_silos,
-                     max(sizes), order, row_ptr, plan.coeffs[1],
-                     plan.diag[1], torch.device("cuda"))
-    row = _time_edge_aggregate(torch, ctx, args, plan.dst[order], 50)
-    res = dict(rounds=cfg.rounds, silos=cfg.silos, leaves=len(leaves),
+    leaves = len(tree_leaves(train.initial_params(
+        reduce(get_config(cfg.arch)), 0, "cpu")))
+    res = dict(rounds=cfg.rounds, silos=cfg.silos, leaves=leaves,
                launches=launches, card_s=card_s, cpu_s=cpu_s,
                losses_card=card["losses"],
                loss_max_rel_diff_same_start_vs_cpu=same_rel,
                loss_rtol=TRAIN_LOSS_RTOL,
                sim={k: card[k] for k in ("sim_mean_cycle_ms",
-                                         "sim_total_time_s")},
-               largest_leaf=dict(n=net.num_silos, e2=len(plan.dst),
-                                 t=max(sizes), **row))
-    if launches != len(leaves) * cfg.rounds:
+                                         "sim_total_time_s")})
+    if launches != cfg.rounds:
         raise AssertionError(f"run_reduced_fl: edge_aggregate launched "
-                             f"{launches} times, not {len(leaves)} leaves x "
-                             f"{cfg.rounds} rounds")
+                             f"{launches} times in {cfg.rounds} rounds")
     if _not_finite(card["losses"]):
         raise AssertionError(f"run_reduced_fl: losses {card['losses']}")
     if same_rel > TRAIN_LOSS_RTOL:
@@ -4355,7 +4519,6 @@ def _reduced_fl(torch, ctx) -> dict:
             raise AssertionError(f"run_reduced_fl: {k} {card[k]} on the "
                                  f"card, {cpu[k]} on the CPU")
     ctx["launches"]["edge_aggregate_train"] = launches
-    ctx["edge_aggregate_train"] = row
     return res
 
 
@@ -4882,47 +5045,36 @@ def main() -> int:
                  error=f"{type(exc).__name__}: {exc}")
             traceback.print_exc()
             return 1
-    wan64 = ctx["edge_aggregate_shapes"]["femnist_wan64"]
+    ea = "src/repro/kernels/gossip_combine/kernel.py:114"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows = ctx["edge_aggregate_rows"]
+
+    def ea_row(launches, timed, **what):
+        return dict(_kernel_row(ctx, "edge_aggregate", ea), **what,
+                    launches=ctx["launches"][launches],
+                    **{k: timed[k] for k in keys})
+
     print(json.dumps({"kernels": [
-        _kernel_row(ctx, "edge_aggregate",
-                    "src/repro/kernels/gossip_combine/kernel.py:114"),
-        dict(_kernel_row(ctx, "edge_aggregate",
-                         "src/repro/kernels/gossip_combine/kernel.py:114"),
-             shape="wan64: N=64, 2E=128, T=1,280,478",
-             launches=ctx["launches"]["edge_aggregate_wan64"],
-             **{k: wan64[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}),
-        dict(_kernel_row(ctx, "edge_aggregate",
-                         "src/repro/kernels/gossip_combine/kernel.py:114"),
-             path="design_loop: evaluate_frontier, 3 candidates x "
-                  f"{DESIGN_ROUNDS} rounds at the main shape",
-             launches=ctx["launches"]["edge_aggregate_design_loop"]),
-        dict(_kernel_row(ctx, "edge_aggregate",
-                         "src/repro/kernels/gossip_combine/kernel.py:114"),
-             path="controller: 4 runs x 48 rounds at the main shape",
-             launches=ctx["launches"]["edge_aggregate_controller"]),
-        dict(_kernel_row(ctx, "edge_aggregate",
-                         "src/repro/kernels/gossip_combine/kernel.py:114"),
-             path=f"legacy run_fl: one launch per leaf a round, {ROUNDS} "
-                  "rounds at the main shape",
-             launches=ctx["launches"]["edge_aggregate_legacy"]),
-        dict(_kernel_row(ctx, "edge_aggregate",
-                         "src/repro/kernels/gossip_combine/kernel.py:114"),
-             path=f"mesh: run_fl on {MESH_ROW_SHARDS} stacked shards, one "
-                  f"launch per shard a round, {ROUNDS} rounds; timed on one "
-                  "shard's padded block at the main width",
-             launches=ctx["launches"]["edge_aggregate_mesh"],
-             **{k: ctx["edge_aggregate_mesh"][k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}),
-        dict(_kernel_row(ctx, "edge_aggregate",
-                         "src/repro/kernels/gossip_combine/kernel.py:114"),
-             path="run_reduced_fl at the CLI's defaults: one launch per "
-                  "leaf a round; timed at the largest leaf",
-             launches=ctx["launches"]["edge_aggregate_train"],
-             **{k: ctx["edge_aggregate_train"][k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}),
+        _kernel_row(ctx, "edge_aggregate", ea),
+        ea_row("edge_aggregate_wan64",
+               ctx["edge_aggregate_shapes"]["femnist_wan64"],
+               shape="wan64: N=64, 2E=128, T=1,280,478"),
+        ea_row("edge_aggregate_design_loop", ctx["edge_aggregate"],
+               path="design_loop: evaluate_frontier, 3 candidates x "
+                    f"{DESIGN_ROUNDS} rounds at the main shape"),
+        ea_row("edge_aggregate_controller", ctx["edge_aggregate"],
+               path="controller: 4 runs x 48 rounds at the main shape"),
+        ea_row("edge_aggregate_legacy", rows["femnist_cnn_leaves"],
+               path=f"legacy run_fl: one launch a round for the CNN's 6 "
+                    f"leaves, {ROUNDS} rounds; timed on the 6 leaves"),
+        ea_row("edge_aggregate_mesh", rows["mesh_shards"],
+               path=f"mesh: run_fl on {MESH_ROW_SHARDS} stacked shards, one "
+                    f"launch a round for all shards, {ROUNDS} rounds; timed "
+                    "on the shards' padded blocks at the main width"),
+        ea_row("edge_aggregate_train", rows["mamba2_leaves"],
+               path="run_reduced_fl at the CLI's defaults: one launch a "
+                    "round for all 12 leaves; timed on the 12 leaves"),
         _kernel_row(ctx, "gossip_combine",
                     "src/repro/kernels/gossip_combine/kernel.py:46"),
         _kernel_row(ctx, "flash_attention",

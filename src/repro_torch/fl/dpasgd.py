@@ -19,7 +19,7 @@ round (`launch/train.run_reduced_fl`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -30,8 +30,9 @@ from repro_torch.core.delay import Workload
 from repro_torch.core.graph import MultigraphState, SimpleGraph
 from repro_torch.design.catalog import build_topology, ring_topology
 from repro_torch.fl.flat import Params
-from repro_torch.kernels.gossip_combine.ops import csr_sort, edge_aggregate
-from repro_torch.launch.mesh import tree_map
+from repro_torch.kernels.gossip_combine.ops import (Segment, csr_sort,
+                                                    refresh_aggregate)
+from repro_torch.launch.mesh import tree_leaves, tree_map
 from repro_torch.networks.zoo import NetworkSpec
 
 
@@ -202,9 +203,32 @@ def init_fl_state(params0: Params, opt, num_silos: int,
         silo_params))
 
 
+class CsrTables(NamedTuple):
+    """A plan's edges dst-sorted by `csr_sort`, as the flat runtime
+    orders them, on one device: ``order`` (2E,) long, the same as int32
+    (``edge_row``: the kernel reads the buffers in original edge order
+    through it), ``src[order]`` int32 and ``row_ptr`` (N+1,) int32."""
+
+    order: torch.Tensor
+    edge_row: torch.Tensor
+    src: torch.Tensor
+    row_ptr: torch.Tensor
+
+
+def csr_tables(plan_src, plan_dst, n: int, device) -> CsrTables:
+    """`CsrTables` of a plan's (2E,) host arrays on ``device``. A run
+    builds them once and hands them to every `fl_round_step`."""
+    order, row_ptr = csr_sort(np.asarray(plan_dst), n)
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    return CsrTables(on(order, torch.long), on(order, torch.int32),
+                     on(np.asarray(plan_src)[order], torch.int32),
+                     on(row_ptr, torch.int32))
+
+
 def fl_round_step(state: FLSimState, batches, plan_src, plan_dst,
                   strong, coeffs, diag, *, loss_fn, opt, local_updates: int,
-                  lr_scale: float = 1.0) -> tuple[FLSimState, torch.Tensor]:
+                  lr_scale: float = 1.0, csr: CsrTables | None = None
+                  ) -> tuple[FLSimState, torch.Tensor]:
     """One communication round over per-leaf stacked trees.
 
     batches: a dict of tensors (u, N, b, ...), one micro batch per local
@@ -214,12 +238,22 @@ def fl_round_step(state: FLSimState, batches, plan_src, plan_dst,
     the plan's (2E,) host arrays; strong (2E,) bool, coeffs (2E,) and
     diag (N,): this round's tensors in the plan's original edge order,
     on the state's device. The local step is `torch.func.vmap` of
-    ``loss_fn``'s gradient over the silos. Each leaf (fp32, the kernel's
-    type) aggregates through `edge_aggregate` (reshaped to (N, -1), the edges dst-sorted
-    by a stable sort, as the flat runtime orders them): the CUDA kernel
-    on a card, its plain version on the CPU, bit-equal to each other;
-    never `index_add_`, whose atomics on CUDA add in a varying order.
-    Returns the state and the round's mean loss (a 0-d tensor).
+    ``loss_fn``'s gradient over the silos. Then every leaf (fp32, the
+    kernel's type, reshaped to (N, -1)) refreshes and aggregates in ONE
+    `refresh_aggregate` call, one segment a leaf, over the edges
+    dst-sorted by a stable sort as the flat runtime orders them, its
+    buffers read and written in their original order through
+    ``edge_row``: the fused CUDA kernel on a card (one launch), its plain
+    version on the CPU, bit-equal to each other; never `index_add_`,
+    whose atomics on CUDA add in a varying order. ``csr``: the plan's
+    `csr_tables` on the state's device (None: built from plan_src and
+    plan_dst in this call; a run builds them once).
+
+    The call consumes ``state``: its buffers are refreshed in place and
+    become the returned state's (a run owns them: `init_fl_state` makes
+    new ones), so a caller that keeps a state to compare or replay hands
+    in a copy. Returns the state and the round's mean loss (a 0-d
+    tensor).
     """
     w, os_ = state.silo_params, state.opt_state
     tree_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
@@ -229,25 +263,20 @@ def fl_round_step(state: FLSimState, batches, plan_src, plan_dst,
             grads, loss = tree_grads(w, {k: v[u] for k, v in batches.items()})
             w, os_ = opt.update(w, grads, os_, lr_scale)
             losses.append(loss)
-        dev = strong.device
-        n = diag.shape[0]
-        order, row_ptr = csr_sort(np.asarray(plan_dst), n)
-        order_t = torch.as_tensor(order, dtype=torch.long, device=dev)
-        src_t = torch.as_tensor(np.asarray(plan_src), dtype=torch.long,
-                                device=dev)
-        row_ptr_t = torch.as_tensor(row_ptr, device=dev)
-        coeffs_sorted = coeffs[order_t]
-
-        def refresh(buf, wall):
-            mask = strong.reshape((-1,) + (1,) * (buf.dim() - 1))
-            return torch.where(mask, wall[src_t], buf)
-
-        def aggregate(wall, buf):
-            out = edge_aggregate(wall.reshape(n, -1),
-                                 buf[order_t].reshape(len(order), -1),
-                                 coeffs_sorted, row_ptr_t, diag)
-            return out.reshape(wall.shape)
-
-        buffers = tree_map(refresh, state.buffers, w)
-        w = tree_map(aggregate, w, buffers)
+        n, e2 = diag.shape[0], len(plan_dst)
+        if csr is None:
+            csr = csr_tables(plan_src, plan_dst, n, strong.device)
+        coeffs_sorted, strong_sorted = coeffs[csr.order], strong[csr.order]
+        # reshape keeps a contiguous leaf's storage: the buffers written
+        # are the state's own
+        bufs = [b.reshape(e2, -1) for b in tree_leaves(state.buffers)]
+        outs = iter(refresh_aggregate([
+            Segment(x.reshape(n, -1), b, coeffs_sorted, csr.row_ptr,
+                    diag.contiguous(), src=csr.src, strong=strong_sorted,
+                    edge_row=csr.edge_row)
+            for x, b in zip(tree_leaves(w), bufs)]))
+        w = tree_map(lambda x: next(outs).view(x.shape), w)
+        bufs = iter(bufs)
+        buffers = tree_map(lambda b: next(bufs).view(b.shape),
+                           state.buffers)
     return FLSimState(w, os_, buffers), torch.stack(losses).mean()

@@ -170,7 +170,3 @@ class MeshFlatSpec:
             raise ValueError(f"MeshFlatSpec: leading axis {x.shape[0]} is "
                              f"neither the rows' nor the edges'")
         return [x[i * rows:(i + 1) * rows] for i in range(len(self.local))]
-
-    def join(self, blocks: list[torch.Tensor]) -> torch.Tensor:
-        """The local shards' blocks -> one local tensor in shard order."""
-        return blocks[0] if len(blocks) == 1 else torch.cat(blocks)

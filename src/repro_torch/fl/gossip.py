@@ -28,7 +28,7 @@ fetch, for each local shard, the (e_per, T) source rows of its block of
 dst-sorted edges over a shard axis (`launch/mesh.StackedShards` or
 `GroupShards`); they only index and copy, so every row a shard receives
 is bit for bit the flat runtime's ``w[src]``. Everything downstream of
-the fetch (buffer refresh and `edge_aggregate`) is shard-local.
+the fetch (the fused buffer refresh and aggregation) is shard-local.
 """
 
 from __future__ import annotations

@@ -18,9 +18,9 @@ the stacked binding:
     by destination, each shard's edges are one contiguous slice of the
     sorted order, padded per shard to ``e_per`` rows. Pad edges carry
     ``strong=False`` and coefficient 0, and sit past the end of the
-    shard's row pointer, built from its real edges only, so
-    `edge_aggregate` never reads them: they do not touch the sums, not
-    even as +0.0, which is what keeps the sharded and flat programs
+    shard's row pointer, built from its real edges only, so the
+    aggregation never reads or writes them: they do not touch the sums,
+    not even as +0.0, which is what keeps the sharded and flat programs
     bit-identical (the reference's `segment_sum` drops them by giving
     them the out-of-range destination ``per``);
   * per round, local SGD runs on the process's own rows (one batched
@@ -34,8 +34,10 @@ the stacked binding:
     `fl/gossip.py` collectives -- `csr_gather_all` (all_gather baseline)
     or `csr_gather_halo` (a halo exchange moving only boundary-crossing
     rows, planned here once from the CSR structure) -- and the refresh
-    and `edge_aggregate` (the CUDA kernel on a card: D launches a round
-    on the stacked binding) stay shard-local;
+    and aggregation stay shard-local: one `refresh_aggregate` call a
+    round over the process's local shards, one segment each (the fused
+    CUDA kernel on a card: one launch a round for any D on the stacked
+    binding, as for the one shard of a group rank);
   * the cycle function keeps the single-device signature ``cycle(state,
     batches, strong, coeffs, diag)`` with plan slices in the oracle's
     dst-sorted layout (the padding and permuting happen inside), so the
@@ -59,7 +61,8 @@ from repro_torch.fl import gossip
 from repro_torch.fl import runtime as flrt
 from repro_torch.fl.runtime import FlatFLState, FlatRuntime
 from repro_torch.kernels.gossip_combine import ops as gossip_ops
-from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+from repro_torch.kernels.gossip_combine.ref import (Segment,
+                                                    refresh_aggregate_ref)
 from repro_torch.launch import mesh as meshmod
 
 
@@ -269,8 +272,10 @@ def make_mesh_cycle_fn(mrt: MeshRuntime, *, loss_fn: Callable, opt,
     gossip_backend: "halo" (exchange of boundary-crossing rows, the
     optimized path) or "all_gather" (full-matrix baseline). Both are bit
     for bit equal to the oracle: they differ only in how the same source
-    rows reach the shard. aggregator: "kernel" (`ops.edge_aggregate`,
-    the CUDA kernel on a card) or "reference" (its plain version).
+    rows reach the shard. aggregator: "kernel" (`ops.refresh_aggregate`,
+    the fused CUDA kernel on a card, one launch a round over the local
+    shards) or "reference" (its plain version). A cycle call clones the
+    buffers once and refreshes the clone in place.
 
     Losses are each round's mean over local steps and the REAL silos, at
     the flat runtime's (u, N) reduce shape. metrics: an `obs.MetricsSpec`,
@@ -283,10 +288,10 @@ def make_mesh_cycle_fn(mrt: MeshRuntime, *, loss_fn: Callable, opt,
         raise ValueError(f"unknown gossip backend {gossip_backend!r}")
     if aggregator not in ("kernel", "reference"):
         raise ValueError("the mesh runtime aggregates per shard through "
-                         f"edge_aggregate; aggregator={aggregator!r} is "
+                         f"refresh_aggregate; aggregator={aggregator!r} is "
                          "single-device only")
-    aggregate = (gossip_ops.edge_aggregate if aggregator == "kernel"
-                 else edge_aggregate_ref)
+    aggregate = (gossip_ops.refresh_aggregate if aggregator == "kernel"
+                 else refresh_aggregate_ref)
     rt, axis, mspec = mrt.rt, mrt.axis, mrt.mspec
     n, per, e_per = rt.num_silos, mrt.per_rows, mrt.edges_per_shard
     rows_padded = mspec.rows_padded
@@ -313,7 +318,9 @@ def make_mesh_cycle_fn(mrt: MeshRuntime, *, loss_fn: Callable, opt,
                 gather=[long(mrt.halo.gather_idx[p]) for p in local],
                 sends=[long(t) for t in mrt.halo.send_idx],
                 row_ptr=[torch.as_tensor(mrt.shard_row_ptr(p), device=dev)
-                         for p in local])
+                         for p in local],
+                edges=[slice(p * e_per, (p + 1) * e_per) for p in local],
+                rows=[slice(p * per, (p + 1) * per) for p in local])
         return on_device[dev]
 
     silo_grads = flrt.silo_grad_fn(rt.spec, loss_fn)
@@ -345,11 +352,12 @@ def make_mesh_cycle_fn(mrt: MeshRuntime, *, loss_fn: Callable, opt,
                              1)[:, tb["edge_perm"]]
         coeffs_p = torch.cat([coeffs, coeffs.new_zeros((rounds, 1))],
                              1)[:, tb["edge_perm"]]
-        diag_p = diag if rows_padded == n else torch.cat(
+        diag_p = diag.contiguous() if rows_padded == n else torch.cat(
             [diag, diag.new_ones((rounds, rows_padded - n))], 1)
         batches_p = {k: pad_batch(v) for k, v in batches.items()}
         local_updates = next(iter(batches.values())).shape[1]
-        w, os_, buf = state.w, state.opt_state, state.buffers
+        w, os_, buf = state.w, state.opt_state, state.buffers.clone()
+        buf_blocks = mspec.split(buf)
         losses, rows = [], []
         if ms is not None:
             taps = flrt.round_taps(ms, rt, dev, sq=real_sq, extra={
@@ -366,16 +374,13 @@ def make_mesh_cycle_fn(mrt: MeshRuntime, *, loss_fn: Callable, opt,
                     axis, w_blocks, tb["sends"], mrt.halo.perms, tb["gather"])
             else:
                 src_rows = gossip.csr_gather_all(axis, w_blocks, tb["src"])
-            new_w, new_buf = [], []
-            for i, (w_p, b_p, p) in enumerate(zip(w_blocks, mspec.split(buf),
-                                                  local)):
-                es = slice(p * e_per, (p + 1) * e_per)
-                b_p = torch.where(strong_p[r, es][:, None], src_rows[i], b_p)
-                new_buf.append(b_p)
-                new_w.append(aggregate(w_p, b_p, coeffs_p[r, es],
-                                       tb["row_ptr"][i],
-                                       diag_p[r, p * per:(p + 1) * per]))
-            w, buf = mspec.join(new_w), mspec.join(new_buf)
+            w = torch.empty_like(w)
+            aggregate([
+                Segment(w_p, b_p, coeffs_p[r, es], rp, diag_p[r, rs],
+                        fresh=fresh, strong=strong_p[r, es], out=o_p)
+                for w_p, b_p, fresh, o_p, rp, es, rs in zip(
+                    w_blocks, buf_blocks, src_rows, mspec.split(w),
+                    tb["row_ptr"], tb["edges"], tb["rows"])])
             # every shard's (per, u) losses -> the real silos' (u, N)
             per_silo = axis.all_gather(mspec.split(round_loss.T),
                                        count=False)[0]

@@ -8,15 +8,19 @@ order, so each round is three array steps:
   1. local SGD: per-silo gradients (`torch.func.vmap` over
      `grad_and_value` of the loss of the unpacked leaves, packed back
      into one (N, T) matrix), then `opt.update` on the whole matrix;
-  2. refresh: ``buf = where(strong, w[src], buf)``, fresh weights on the
-     round's strong edges and stale ones elsewhere;
-  3. aggregation: one `edge_aggregate` over the CSR rows (the CUDA kernel
-     on a card, its plain version on the CPU).
+  2. refresh: the round's strong edges' buffers take their sources'
+     fresh rows (``buf = where(strong, w[src], buf)``, in place), the
+     weak ones keep their stale rows;
+  3. aggregation: one CSR sum over the refreshed buffers.
 
+Steps 2 and 3 are one `refresh_aggregate` call a round (the fused CUDA
+kernel on a card, one launch; its plain version on the CPU).
 `make_cycle_fn` runs the rounds of a cycle in a Python loop and syncs
 with the host only when the caller reads the losses (and the in-cycle
-metrics, when asked for). The legacy per-leaf runtime
-(`fl/dpasgd.fl_round_step`) computes the same rounds bit for bit.
+metrics, when asked for). A cycle call clones the buffers once and
+refreshes the clone in place: the state passed in is never written.
+The legacy per-leaf runtime (`fl/dpasgd.fl_round_step`) computes the
+same rounds bit for bit.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import torch
 from repro_torch.fl import flat as flatmod
 from repro_torch.fl.dpasgd import RoundPlan
 from repro_torch.kernels.gossip_combine import ops as gossip_ops
-from repro_torch.kernels.gossip_combine.ref import (dense_edge_aggregate,
-                                                    edge_aggregate_ref)
+from repro_torch.kernels.gossip_combine.ref import (Segment,
+                                                    dense_edge_aggregate,
+                                                    refresh_aggregate_ref,
+                                                    refresh_buffers)
 from repro_torch.obs import metrics as obsmet
 
 
@@ -71,7 +77,7 @@ class FlatRuntime:
         cycle function: same CSR structure, another argument. A silo
         whose edges all go weak reads stale buffers, and an all-crashed
         destination row aggregates over an empty CSR row, which
-        `edge_aggregate` handles by construction."""
+        the aggregation handles by construction."""
         from repro_torch.faults.degrade import pair_rounds_to_directed
         return pair_rounds_to_directed(self.order, pair_mask)
 
@@ -189,10 +195,11 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
     cross-shard backend, default "halo"). ``gossip`` with a flat runtime
     raises, as in the reference.
 
-    aggregator: "kernel" (`ops.edge_aggregate`: the CUDA kernel for
-    tensors on a card, the plain version on the CPU), "reference" (the
-    plain version everywhere) or "dense" (`dense_edge_aggregate`, for
-    overlays whose every silo has the same in-degree, e.g. any ring).
+    aggregator: "kernel" (`ops.refresh_aggregate`: the fused CUDA kernel
+    for tensors on a card, one launch a round; the plain version on the
+    CPU), "reference" (the plain version everywhere) or "dense" (the
+    plain refresh, then `dense_edge_aggregate`, for overlays whose every
+    silo has the same in-degree, e.g. any ring).
 
     metrics: an `obs.MetricsSpec` adds a third output, an (R, K) fp32
     tensor of per-round scalars on the state's device (column names on
@@ -219,12 +226,15 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
                              f"got {degrees}")
         n, deg = rt.num_silos, int(degrees[0])
 
-        def aggregate(w, buf, coeffs_r, row_ptr, diag_r):
-            return dense_edge_aggregate(w, buf, coeffs_r.reshape(n, deg),
-                                        diag_r)
+        def aggregate(segments):
+            seg, = segments
+            buf, _, _ = refresh_buffers(seg)
+            return [dense_edge_aggregate(seg.w, buf,
+                                         seg.coeffs.reshape(n, deg),
+                                         seg.diag)]
     else:
-        aggregate = (gossip_ops.edge_aggregate if aggregator == "kernel"
-                     else edge_aggregate_ref)
+        aggregate = (gossip_ops.refresh_aggregate if aggregator == "kernel"
+                     else refresh_aggregate_ref)
     ms = metrics
     silo_grads = silo_grad_fn(rt.spec, loss_fn)
     sq = lambda x: torch.sum(torch.square(x))
@@ -235,10 +245,14 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
         dev = state.w.device
         if dev not in on_device:
             on_device[dev] = (
-                torch.as_tensor(rt.src_sorted, dtype=torch.long, device=dev),
+                torch.as_tensor(rt.src_sorted, dtype=torch.int32, device=dev),
                 torch.as_tensor(rt.row_ptr, dtype=torch.int32, device=dev))
         src, row_ptr = on_device[dev]
-        w, os_, buf = state.w, state.opt_state, state.buffers
+        # the kernel takes contiguous rows (`expand_pair_mask` gives
+        # column-major masks)
+        strong, coeffs, diag = (x.contiguous() for x in (strong, coeffs,
+                                                         diag))
+        w, os_, buf = state.w, state.opt_state, state.buffers.clone()
         local_updates = next(iter(batches.values())).shape[1]
         losses, rows = [], []
         if ms is not None:
@@ -249,8 +263,8 @@ def make_cycle_fn(rt: FlatRuntime, *, loss_fn: Callable, opt,
                 silo_grads, opt, lr_scale, w, os_, local_updates,
                 lambda u: {k: v[r, u] for k, v in batches.items()},
                 grad_sq=sq if ms is not None and ms.grad_norm else None)
-            buf = torch.where(strong[r][:, None], w[src], buf)
-            w = aggregate(w, buf, coeffs[r], row_ptr, diag[r])
+            w, = aggregate([Segment(w, buf, coeffs[r], row_ptr, diag[r],
+                                    src=src, strong=strong[r])])
             losses.append(round_loss.mean())
             if ms is not None:
                 rows.append(taps(strong[r], w0, w, gsq, round_loss))

@@ -324,6 +324,7 @@ def _train_legacy(cfg, plan, spec, params0, data, n, rng, dev, accuracy):
     plan_t = {k: torch.as_tensor(np.ascontiguousarray(getattr(plan, k)),
                                  device=dev)
               for k in ("strong", "coeffs", "diag")}
+    csr = dpasgd.csr_tables(plan.src, plan.dst, n, dev)
     r_cycle = plan.num_rounds_cycle
     round_losses, eval_rounds, eval_accs = [], [], []
     for k in range(cfg.rounds):
@@ -334,7 +335,7 @@ def _train_legacy(cfg, plan, spec, params0, data, n, rng, dev, accuracy):
         state, loss = dpasgd.fl_round_step(
             state, batches, plan.src, plan.dst, plan_t["strong"][pk],
             plan_t["coeffs"][pk], plan_t["diag"][pk], loss_fn=spec.loss,
-            opt=opt, local_updates=cfg.local_updates)
+            opt=opt, local_updates=cfg.local_updates, csr=csr)
         round_losses.append(float(loss))
         if (k + 1) % cfg.eval_every == 0 or k == cfg.rounds - 1:
             eval_accs.append(accuracy(tree_map(

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version: `gossip_combine.edge_aggregate` (the FL round's aggregation),
+version: `gossip_combine.refresh_aggregate` (the FL round's refresh and
+aggregation, and `edge_aggregate`, its plain CSR sum),
 `gossip_combine.gossip_combine` (the ring gossip round's combine),
 `flash_attention.flash_attention` (prefill),
 `decode_attention.decode_attention` (one-token decode) and

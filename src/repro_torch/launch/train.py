@@ -5,9 +5,10 @@ N silos federally train a REDUCED variant of any architecture
 (`configs.reduce`: 2 layers, d_model <= 256, fp32) on synthetic per-silo
 LM streams, under any Table-1 topology: DPASGD local steps
 (`sgd(lr, momentum=0.9)`), the multigraph state schedule and stale
-weak-edge buffers through `fl/dpasgd.fl_round_step`, whose aggregation
-runs every leaf through `edge_aggregate` (the CUDA kernel on the card),
-plus the cycle-time simulator for the wall-clock axis. The round draws
+weak-edge buffers through `fl/dpasgd.fl_round_step`, which refreshes and
+aggregates all leaves in one `refresh_aggregate` call a round (one
+launch of the fused CUDA kernel on the card), plus the cycle-time
+simulator for the wall-clock axis. The round draws
 and the LM data are the reference's numpy streams. Initial parameters
 come from `transformer.init_params` with a `torch.Generator` seeded by
 ``seed`` on the run's device (torch cannot draw the reference's
@@ -253,6 +254,7 @@ def run_reduced_fl(cfg: TrainConfig, device=None) -> dict:
         plan_t = {k: torch.as_tensor(np.ascontiguousarray(getattr(plan, k)),
                                      device=device)
                   for k in ("strong", "coeffs", "diag")}
+        csr = dpasgd.csr_tables(plan.src, plan.dst, n, device)
         if cfg.ckpt_dir:
             ckpt_spec = flatmod.make_flat_spec(params0)
         for k in range(cfg.rounds):
@@ -268,7 +270,7 @@ def run_reduced_fl(cfg: TrainConfig, device=None) -> dict:
                     state, batches, plan.src, plan.dst,
                     plan_t["strong"][pk], plan_t["coeffs"][pk],
                     plan_t["diag"][pk], loss_fn=loss_fn, opt=opt,
-                    local_updates=1)
+                    local_updates=1, csr=csr)
                 loss = float(loss)
             losses.append(loss)
             if due(k + 1):

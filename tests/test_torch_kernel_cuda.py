@@ -85,6 +85,144 @@ def test_kernel_rejects_bad_inputs(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the fused, grouped refresh-and-aggregate
+# ---------------------------------------------------------------------------
+
+from _refresh_cases import CASES as REFRESH_CASES  # noqa: E402
+from _refresh_cases import multi_t_cases, segment_case  # noqa: E402
+from repro_torch.kernels.gossip_combine.ref import (  # noqa: E402
+    Segment, refresh_aggregate_ref)
+
+
+def _refresh_segment(case, device):
+    t = lambda a, dt=torch.float32: None if a is None else torch.tensor(
+        a, dtype=dt, device=device)
+    return Segment(t(case["w"]), t(case["buf"]), t(case["coeffs"]),
+                   t(case["row_ptr"], torch.int32), t(case["diag"]),
+                   fresh=t(case["fresh"]), src=t(case["src"], torch.int32),
+                   strong=t(case["strong"], torch.bool),
+                   edge_row=t(case["edge_row"], torch.int32))
+
+
+def _same(a, b):
+    """Equal, NaN where NaN (a NaN's payload may differ between kernels)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def _kernel_against_plain(cases, device):
+    segs = [_refresh_segment(c, device) for c in cases]
+    plain = [_refresh_segment(c, device) for c in cases]
+    before = ops.edge_aggregate.launches
+    outs = ops.refresh_aggregate(segs)
+    torch.cuda.synchronize()
+    assert ops.edge_aggregate.launches == before + 1
+    for seg, ref, out, want in zip(segs, plain, outs,
+                                   refresh_aggregate_ref(plain)):
+        assert _same(out, want)
+        assert _same(seg.buf, ref.buf)
+
+
+def test_refresh_aggregate_on_cpu_launches_nothing():
+    cases = multi_t_cases(0)
+    segs = [_refresh_segment(c, "cpu") for c in cases]
+    plain = [_refresh_segment(c, "cpu") for c in cases]
+    before = ops.edge_aggregate.launches
+    for out, want in zip(ops.refresh_aggregate(segs),
+                         refresh_aggregate_ref(plain)):
+        assert torch.equal(out, want)
+    assert ops.edge_aggregate.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(REFRESH_CASES))
+def test_refresh_aggregate_equals_plain_version(cuda, name):
+    _kernel_against_plain([segment_case(7, **REFRESH_CASES[name])], cuda)
+
+
+@pytest.mark.cuda
+def test_refresh_aggregate_grouped_equals_plain_version(cuda):
+    """One launch over segments of T = 1, 3, 4,099 and T % 4 = 0..3 plus
+    every single case."""
+    cases = multi_t_cases(1) + [segment_case(8, **kw)
+                                for kw in REFRESH_CASES.values()]
+    _kernel_against_plain(cases, cuda)
+
+
+@pytest.mark.cuda
+def test_refresh_aggregate_rows_off_the_grid_and_many_rows(cuda):
+    """Rows whose starts are 4 or 8 bytes off the 16-byte grid (views
+    into a larger buffer) take narrower loads; 300 rows and 700 edges,
+    and 40 segments (two launches), work as a few do."""
+    case = segment_case(9, n=300, e2=700, t=1026)
+    _kernel_against_plain([case], cuda)
+    segs = [_refresh_segment(segment_case(20 + k, n=3, e2=5, t=100 + k),
+                             cuda) for k in range(40)]
+    plain = [s._replace(buf=s.buf.clone()) for s in segs]
+    before = ops.edge_aggregate.launches
+    outs = ops.refresh_aggregate(segs)
+    assert ops.edge_aggregate.launches == before + 2
+    for seg, ref, out, want in zip(segs, plain, outs,
+                                   refresh_aggregate_ref(plain)):
+        assert _same(out, want) and _same(seg.buf, ref.buf)
+    for offset in (1, 2):
+        seg = _refresh_segment(segment_case(10, n=5, e2=9, t=4096), cuda)
+        plain = _refresh_segment(segment_case(10, n=5, e2=9, t=4096), cuda)
+        w = torch.zeros(5 * 4096 + offset, device=cuda)[offset:].view(5, 4096)
+        w.copy_(seg.w)
+        got, = ops.refresh_aggregate([seg._replace(w=w)])
+        want, = refresh_aggregate_ref([plain])
+        assert _same(got, want) and _same(seg.buf, plain.buf)
+
+
+@pytest.mark.cuda
+def test_refresh_aggregate_refuses(cuda, monkeypatch):
+    """A launch the entry point refuses (more segments than its
+    parameters hold) raises; so do inputs the wrapper does not take."""
+    seg = _refresh_segment(segment_case(0, n=4, e2=6, t=64), cuda)
+    monkeypatch.setattr(ops, "MAX_SEGMENTS", 64)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.refresh_aggregate([seg] * 33)
+    monkeypatch.undo()
+    with pytest.raises(TypeError):
+        ops.refresh_aggregate([seg._replace(src=seg.src.long())])
+    with pytest.raises(ValueError):
+        ops.refresh_aggregate([seg._replace(strong=seg.strong[:3])])
+    with pytest.raises(ValueError):
+        ops.refresh_aggregate([seg._replace(fresh=seg.w.cpu())])
+
+
+@pytest.mark.cuda
+def test_cycle_takes_column_major_plan_slices(cuda):
+    """The fault layer's masks (`expand_pair_mask`) are column-major: the
+    flat cycle on the card takes them and gives what the contiguous
+    slices give, bit for bit."""
+    from repro_torch.core.delay import FEMNIST
+    from repro_torch.fl import dpasgd, runtime
+    from repro_torch.networks.registry import get_network
+    from repro_torch.optim import flat_sgd
+
+    plan, _ = dpasgd.make_round_schedule("multigraph", get_network("gaia"),
+                                         FEMNIST)
+    rt = runtime.make_flat_runtime(plan, {"w": torch.zeros(300)}, 11)
+    pairs = np.random.default_rng(0).random((4, len(plan.src) // 2)) < 0.5
+    strong = torch.as_tensor(rt.expand_pair_mask(pairs), device=cuda)
+    assert not strong.is_contiguous()
+    rest = [torch.as_tensor(x[:4], device=cuda) for x in (rt.coeffs, rt.diag)]
+    opt = flat_sgd(0.05)
+    loss = lambda p, b: torch.sum(p["w"] * b["g"])
+    batches = {"g": torch.randn((4, 1, 11, 300), device=cuda)}
+    outs = []
+    for mask in (strong, strong.contiguous()):
+        cycle = runtime.make_cycle_fn(rt, loss_fn=loss, opt=opt)
+        state = runtime.init_flat_state(torch.ones(300, device=cuda), opt, rt)
+        outs.append(cycle(state, batches, mask, *rest)[0])
+    assert torch.equal(outs[0].w, outs[1].w)
+    assert torch.equal(outs[0].buffers, outs[1].buffers)
+
+
+# ---------------------------------------------------------------------------
 # gossip_combine and the ring gossip round
 # ---------------------------------------------------------------------------
 
@@ -1075,13 +1213,13 @@ def test_gemma3_prefill_kernel_matches_reference_impl(cuda):
 def test_fl_round_step_kernel_equals_plain_aggregation(deterministic,
                                                        monkeypatch):
     """Two rounds of `fl_round_step` over reduced mamba2-370m on 4 gaia
-    silos (the LLM trainer's round): through the `edge_aggregate` kernel,
-    one launch per leaf a round, bit-equal to the same rounds aggregated
-    by the plain version."""
+    silos (the LLM trainer's round): through the fused `edge_aggregate`
+    kernel, one launch a round for all leaves, bit-equal to the same
+    rounds refreshed and aggregated by the plain version."""
     from repro_torch.configs import get_config, reduce
     from repro_torch.core.delay import FEMNIST
     from repro_torch.fl import dpasgd
-    from repro_torch.kernels.gossip_combine.ref import edge_aggregate_ref
+    from repro_torch.kernels.gossip_combine.ref import refresh_aggregate_ref
     from repro_torch.launch import train
     from repro_torch.launch.mesh import tree_leaves
     from repro_torch.models import transformer as tf
@@ -1116,9 +1254,9 @@ def test_fl_round_step_kernel_equals_plain_aggregation(deterministic,
 
     before = ops.edge_aggregate.launches
     kernel, kl = run()
-    leaves = len(tree_leaves(kernel.silo_params))
-    assert ops.edge_aggregate.launches - before == 2 * leaves
-    monkeypatch.setattr(dpasgd, "edge_aggregate", edge_aggregate_ref)
+    assert len(tree_leaves(kernel.silo_params)) > 1
+    assert ops.edge_aggregate.launches - before == 2
+    monkeypatch.setattr(dpasgd, "refresh_aggregate", refresh_aggregate_ref)
     plain, pl = run()
     assert kl == pl
     for a, b in zip(tree_leaves(kernel.silo_params),

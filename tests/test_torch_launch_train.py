@@ -184,23 +184,25 @@ def test_mesh_runs_equal_the_legacy_runtime(monkeypatch, tmp_path, arch):
             np.testing.assert_array_equal(a.w, b.w)
 
 def test_aggregates_every_leaf_through_edge_aggregate(monkeypatch):
-    """`fl_round_step` sends each leaf of each round to `edge_aggregate`
-    (counted here through a wrapper: on the CPU the op runs its plain
-    version and launches nothing)."""
+    """`fl_round_step` sends every leaf of a round to one
+    `refresh_aggregate` call, one segment a leaf (counted here through a
+    wrapper: on the CPU the op runs its plain version and launches
+    nothing)."""
     calls = []
-    real = dpasgd.edge_aggregate
+    real = dpasgd.refresh_aggregate
 
-    def spy(*args):
-        calls.append(args[0].shape)
-        return real(*args)
+    def spy(segments):
+        calls.append([s.w.shape for s in segments])
+        return real(segments)
 
-    monkeypatch.setattr(dpasgd, "edge_aggregate", spy)
+    monkeypatch.setattr(dpasgd, "refresh_aggregate", spy)
     out = ptrain.run_reduced_fl(ptrain.TrainConfig(rounds=3, silos=3,
                                                    seq_len=16), device="cpu")
     mcfg = ptrain.reduce_cfg(ptrain.get_config("mamba2-370m"))
     leaves = tree_leaves(ptrain.initial_params(mcfg, 0, "cpu"))
-    assert len(calls) == 3 * len(leaves)
-    assert all(s[0] == 3 for s in calls)
+    assert len(calls) == 3
+    assert all(len(c) == len(leaves) for c in calls)
+    assert all(s[0] == 3 for c in calls for s in c)
     assert np.isfinite(out["losses"]).all()
 
 
