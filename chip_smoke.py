@@ -46,17 +46,22 @@ Phases, each printing one JSON line:
 6. flash_attention (this phase and those after it run without the
    deterministic algorithms that run_fl turns on): the kernel against its
    plain PyTorch version on the reference kernel tests' cases, bf16 cases
-   of the wgmma route (groups of 3 and 7, S under one key tile, ragged
-   tiles, window and prefix edges across tiles, q sliced from a fused
-   qkv projection), and the yi-9b prefill shape (B=4, S=2048, Hq=32,
-   Hkv=4, hd=128, bf16, causal), within the reference tests' tolerances
-   (5e-4 f32, 2e-2 bf16), each case on the route the rule gives it; at
-   the prefill shape also against the plain version run in fp32, per row
+   of the wgmma route at hd 64, 128 and 256 (groups of 3 and 7, S under
+   one key tile, ragged tiles, window and prefix edges across tiles,
+   paligemma's prefix over four 64-key tiles, q sliced from a fused qkv
+   projection), an hd-256 q with rows off the 16-byte grid (the CUDA
+   cores), the yi-9b prefill shape (B=4, S=2048, Hq=32, Hkv=4, hd=128,
+   bf16, causal) and paligemma-3b's (B=4, S=2048, Hq=8, Hkv=1, hd=256,
+   prefix 256), within the reference tests' tolerances (5e-4 f32, 2e-2
+   bf16), each case on the route the rule gives it; at both prefill
+   shapes also against the plain version run in fp32, per row
    (FP32_ROW_REL_TOL); ptxas's registers and spills of the wgmma kernels
-   (a spill fails the phase); times the kernel, the plain version and
-   `F.scaled_dot_product_attention` (a yardstick the port never calls)
-   beside the bound, at the yi-9b shape and at zamba2's (B=4, S=2048,
-   Hq=Hkv=32, hd=64);
+   at hd 64, 128 and 256 (a spill fails the phase); times the kernel,
+   the plain version and `F.scaled_dot_product_attention` (a yardstick
+   the port never calls; at paligemma's shape with the same boolean
+   mask) beside the bound, at the yi-9b shape, at zamba2's (B=4,
+   S=2048, Hq=Hkv=32, hd=64) and at paligemma's (the bound over the
+   pairs the mask keeps; its own `kernels` row);
 7. decode_attention: the same on the reference's decode cases, the
    configs' query-head groups (2, 5, 7, 8, 32 and 40 per KV head) and at
    B=8, S=4096 with random lengths (also against fp32); cache rows past
@@ -150,11 +155,13 @@ Phases, each printing one JSON line:
    positions (paligemma's 256 and musicgen's 64 prefix positions
    included, from `synthetic_prefix`): one `flash_attention` launch per
    attention layer (24, 18, 48, 62; gemma3's local layers with window
-   1024, its global ones with none) and last-position logits within
-   FAMILY_LOGITS_REL_TOL of `impl="reference"` (granite-moe's bf16
-   forward is chaotic on random weights: it is also held in fp32, prefill
-   and decode); ms per prefill and tokens/s. The kernel at the family's prefill shape against its plain
-   version, timed beside it, SDPA with the same mask and the bound.
+   1024, its global ones with none), every bf16 one on the wgmma route
+   (`launches_by_route`; paligemma's hd 256 too), and last-position
+   logits within FAMILY_LOGITS_REL_TOL of `impl="reference"`
+   (granite-moe's bf16 forward is chaotic on random weights: it is also
+   held in fp32, prefill and decode, on the CUDA cores); ms per prefill
+   and tokens/s. The kernel at the family's prefill shape against its
+   plain version, timed beside it, SDPA with the same mask and the bound.
    `make_serve_step` on 8 slots fed prompts of 2..16 tokens token by
    token, then 32 greedy tokens: one `decode_attention` launch per layer
    a step, logits within the same limit of a `decode_step(impl=
@@ -232,7 +239,8 @@ Phases, each printing one JSON line:
    region's variant `apply_delta` of its mean delta bit for bit, the
    served tokens equal to those of a `full` twin of those variants. (d)
    LoRA rank 8 over mamba2-370m at full width and depth on 2 stacked
-   shards, 4 gaia silos, a 4-round warm-up call, then 20 rounds timed:
+   shards, 4 gaia silos, a 4-round warm-up call, then the whole
+   multigraph cycle (60 rounds) in one call, timed:
    T_lora, ms a round, peak memory, finite losses;
 22. launch_analysis (no kernel launched): the launch analysis tools
    against the card's own readings. (a) Every prefill and train step
@@ -240,12 +248,11 @@ Phases, each printing one JSON line:
    (`repro_torch.launch.roofline.bound_ms`: the reference's FLOP and
    byte model at the data sheet's rates): none may be faster. (b) The
    dry run's peak live bytes of `llm_train`'s two steps, traced on fake
-   tensors in two spawned worker processes, against their
-   `max_memory_allocated`, within DRY_PEAK_BAND. (c) Every
-   `fabric_bytes` reading of `fl_mesh` equal to `fl_mesh_fabric_bytes`
-   of `fl_mesh_report(network="gaia")` at FEMNIST's width. (d) The dry
-   run's CLI (DRYRUN_CLI, in a subprocess meanwhile) and the roofline
-   CLI on its reports, each exiting 0;
+   tensors by the host workers, against their `max_memory_allocated`,
+   within DRY_PEAK_BAND. (c) Every `fabric_bytes` reading of `fl_mesh`
+   equal to `fl_mesh_fabric_bytes` of `fl_mesh_report(network="gaia")`
+   at FEMNIST's width. (d) The dry run's CLI (DRYRUN_CLI, run by the
+   host workers) and the roofline CLI on its reports, each exiting 0;
 23. run_fl_models (run last with the next phase): the same as 4 for the
    Sent140 LSTM and the iNaturalist ResNet (gaia, multigraph, batch 32,
    lr 0.05, 30 rounds), then one steady-state cycle of each, timed and
@@ -282,8 +289,9 @@ Phases, each printing one JSON line:
    report, with each engine's seconds and the device grid's operations
    a round (the profiler's count at two round counts); (b)
    `CandidateScorer` over gaia / femnist's ring overlay at 6,400 rounds
-   on both backends for 16, 256 and 1,024 seeded random candidates, the
-   scores bit-equal, with candidates per second of each; (c)
+   on the card and on the host (in a host worker) for 16, 256 and 4,096
+   seeded random candidates, the scores bit-equal, with candidates per
+   second of each; (c)
    `population_search(gaia, femnist)` on both backends at the search
    CLI's --quick sizes (800 rounds, 6 iterations, pop 12, 4
    generations), equal rows and pools, seconds of each; (d)
@@ -306,8 +314,21 @@ cycle (`cycle_bench`), so that two commits compare in one call;
 `--profiler-bench SECONDS` samples how many short kernels' records the
 profiler keeps, in a bare and a padded window, as the process ages.
 
-Then a `{"kernels": [...]}` line, the card's name and power limit as
-nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Any
+Host work that needs no card runs beside the card phases, from the end
+of phase HOST_WORK_AFTER, in worker processes of one thread each
+(`start_host_work`): the dry runs and the dryrun CLI of phase 22 and the
+host scorer of phase 26 (b); the phases that read it wait for it. The
+profiles are summed from the profiler's raw records (`device_averages`,
+`host_averages`: what `key_averages` gives, without the event tree that
+costs minutes of host time). Every JSON line carries `t_s`, the seconds
+since the start, and a `timeline` line after the last phase gives each
+phase's wall seconds and the seconds spent waiting for host work.
+
+Then a `{"kernels": [...]}` line (every row's `route` is "cuda"; the
+flash_attention rows of paligemma and the families name the kernel's
+own route, wgmma or CUDA cores, as `kernel_route`), the card's name and
+power limit as nvidia-smi gives them, and last `{"ok": true, "device":
+{...}}`. Any
 failed phase prints its error and exits 1 with no result. Without a CUDA
 device, or without the repository's src/ beside it, it exits non-zero.
 """
@@ -323,11 +344,13 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import NamedTuple
 
 # cuBLAS needs a fixed workspace for deterministic results (set before
 # the first CUDA call).
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 MAIN_SHAPE = dict(n=11, t=1_280_478)      # gaia silos, FEMNIST CNN size
@@ -335,7 +358,10 @@ ROUNDS = 30
 
 
 def emit(**fields) -> None:
-    print(json.dumps(fields), flush=True)
+    """One JSON line of ``fields`` and `t_s`, the seconds since the script
+    started."""
+    print(json.dumps(dict(fields, t_s=time.perf_counter() - T_START)),
+          flush=True)
 
 
 def card_rates(name: str) -> tuple[float, float, str]:
@@ -396,6 +422,86 @@ def profiled(torch):
         yield prof
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
+
+
+class Avg(NamedTuple):
+    """One name's records in a profile, summed as `key_averages` sums
+    them: times in microseconds."""
+    key: str
+    count: int
+    self_device_time_total: float = 0.0
+    self_cpu_time_total: float = 0.0
+
+
+def _records(prof, device_type):
+    """(name, start, end, thread) of each of the profile's records of
+    ``device_type`` that `key_averages` counts (utility, hidden and
+    asynchronous records dropped; times in microseconds), read from
+    the raw kineto results: `key_averages` first builds the profiler's
+    event tree in Python, record by record, minutes of host time for a
+    window of tens of thousands of kernels."""
+    from torch.autograd.profiler_util import _filter_name
+
+    results = prof.profiler.kineto_results
+    zero = results.trace_start_ns()
+    for ev in results.events():
+        if (ev.device_type() != device_type or _filter_name(ev.name())
+                or getattr(ev, "is_hidden_event", lambda: False)()
+                or ev.is_async()
+                or ev.start_thread_id() != ev.end_thread_id()):
+            continue
+        name = ev.name()
+        yield (("ProfilerStep*" if name.startswith("ProfilerStep#")
+                else name), (ev.start_ns() - zero) / 1e3,
+               (ev.end_ns() - zero) / 1e3, ev.start_thread_id())
+
+
+def device_averages(prof) -> list:
+    """The profile's device records by name: count and device time, as
+    `key_averages` gives its CUDA rows."""
+    from torch.autograd import DeviceType
+
+    sums: dict = {}
+    for key, start, end, _ in _records(prof, DeviceType.CUDA):
+        us, n = sums.get(key, (0.0, 0))
+        sums[key] = (us + end - start, n + 1)
+    return [Avg(key, n, self_device_time_total=us)
+            for key, (us, n) in sums.items()]
+
+
+def host_averages(prof) -> list:
+    """The profile's host records by name: count and CPU time of their
+    own (less that of the records nested in them on the same thread), as
+    `key_averages` gives its CPU rows, which also fold a record into its
+    parent of the same name when it is the parent's only child."""
+    from torch.autograd import DeviceType
+
+    threads: dict = {}
+    for key, start, end, thread in _records(prof, DeviceType.CPU):
+        threads.setdefault(thread, []).append([start, end, key, []])
+    sums: dict = {}
+    for recs in threads.values():
+        recs.sort(key=lambda r: (r[0], -r[1]))
+        stack: list = []        # [start, end, key, children]
+        for rec in recs:
+            while stack and (rec[0] >= stack[-1][1]
+                             or rec[1] > stack[-1][1]):
+                stack.pop()
+            if stack:
+                stack[-1][3].append(rec)
+            stack.append(rec)
+        kept = {id(r): r for r in recs}
+        for rec in recs:
+            while (id(rec) in kept and len(rec[3]) == 1
+                   and rec[3][0][2] == rec[2]):
+                kept.pop(id(rec[3][0]))
+                rec[3] = rec[3][0][3]
+        for start, end, key, children in kept.values():
+            us, n = sums.get(key, (0.0, 0))
+            sums[key] = (us + end - start - sum(c[1] - c[0] for c in children),
+                         n + 1)
+    return [Avg(key, n, self_cpu_time_total=us)
+            for key, (us, n) in sums.items()]
 
 
 def phase_device(torch, ctx):
@@ -884,14 +990,12 @@ def _cycle_timing(torch, dataset: str, aggregators, profile=True) -> dict:
     state = flrt.init_flat_state(w0, opt, rt)
     cycle(state, batches, *plan_t)
     torch.cuda.synchronize()
-    from torch.autograd import DeviceType
     with profiled(torch) as prof:
         cycle(state, batches, *plan_t)
     # kernels only: op-level rows repeat their kernels' device time
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA
-                   and ev.self_device_time_total > 0), reverse=True)
+                   for ev in device_averages(prof)
+                   if ev.self_device_time_total > 0), reverse=True)
     busy_ms = sum(x[0] for x in rows) / 1e3
     if busy_ms == 0:
         raise RuntimeError(f"{dataset}: the profiler saw no device time")
@@ -1690,22 +1794,116 @@ def _dry_train_peak(arch: str) -> dict:
                 flops=rep["cost"]["flops"], trace_s=rep["trace_s"])
 
 
+#: Host work that needs no card (`start_host_work`) starts once this
+#: phase has run, so that it runs beside the card phases after it
+#: rather than competing with the build or the FEMNIST cycle's timing.
+HOST_WORK_AFTER = "cycle"
+_ONE_THREAD = {var: "1" for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
+                                    "OPENBLAS_NUM_THREADS")}
+
+
+def _host_worker_init() -> None:
+    """One thread for each math library in a host worker, so that the
+    workers leave the cores to the process driving the card."""
+    os.environ.update(_ONE_THREAD)
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(1)
+
+
+class _DryrunCli:
+    """`python -m repro_torch.launch.dryrun` on DRYRUN_CLI, writing into
+    ``tmp``, in a process of its own; `get` gives its exit code, the end
+    of its errors and its seconds."""
+
+    def __init__(self, tmp: str):
+        import threading
+
+        self.tmp, t0 = Path(tmp), time.perf_counter()
+        self.err = open(self.tmp / "dryrun.err", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
+             "--out", tmp], cwd=tmp,
+            env=dict(os.environ, PYTHONPATH=str(SRC), **_ONE_THREAD),
+            stdout=subprocess.DEVNULL, stderr=self.err)
+        self.seconds = None
+
+        def wait():
+            self.proc.wait()
+            self.seconds = time.perf_counter() - t0
+
+        self.waiter = threading.Thread(target=wait, daemon=True)
+        self.waiter.start()
+
+    def get(self, timeout: float) -> dict:
+        self.waiter.join(timeout)
+        if self.seconds is None:
+            raise TimeoutError(f"dryrun CLI still running after {timeout} s")
+        self.err.close()
+        return dict(rc=self.proc.returncode, seconds=self.seconds,
+                    stderr_tail=(self.tmp / "dryrun.err").read_text()[-600:])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.err.close()
+
+
+def start_host_work(ctx) -> None:
+    """Start, in a pool of worker processes, the smoke's host work that
+    needs no card: the dry runs of `llm_train`'s steps and the dryrun CLI
+    (read by `phase_launch_analysis`) and the host scorer's candidate
+    sets (read by `phase_design_search`)."""
+    import multiprocessing
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    pool = multiprocessing.get_context("spawn").Pool(
+        len(TRAIN_ARCHS) + 1, initializer=_host_worker_init)
+    jobs = {f"dry_peak/{arch}": pool.apply_async(_dry_train_peak, (arch,))
+            for arch in TRAIN_ARCHS}
+    jobs["dryrun_cli"] = _DryrunCli(tmp)
+    jobs["scores_numpy"] = pool.apply_async(_score, ("numpy",))
+    ctx["host_work"] = dict(tmp=tmp, pool=pool, jobs=jobs, waited_s={})
+
+
+def host_result(ctx, name: str):
+    """The result of host job ``name``, waiting for it if it is still
+    running (the seconds waited are kept for the timeline)."""
+    t0 = time.perf_counter()
+    res = ctx["host_work"]["jobs"][name].get(timeout=900)
+    ctx["host_work"]["waited_s"][name] = time.perf_counter() - t0
+    return res
+
+
+def stop_host_work(ctx) -> dict:
+    """End every host worker and remove their directory; the seconds each
+    job was waited for."""
+    import shutil
+
+    work = ctx.pop("host_work", None)
+    if work is None:
+        return {}
+    work["jobs"]["dryrun_cli"].stop()
+    work["pool"].terminate()
+    work["pool"].join()
+    shutil.rmtree(work["tmp"], ignore_errors=True)
+    return work["waited_s"]
+
+
 def phase_launch_analysis(torch, ctx):
     """The launch analysis tools against the card's own readings; no
     kernel is launched. (a) Every timed prefill and train step above
     against its analytic bound on this card (`roofline.bound_ms`): no
     step under it. (b) The dry run's peak bytes of `llm_train`'s steps
-    (traced on fake tensors in two worker processes) against their
-    `max_memory_allocated`, within DRY_PEAK_BAND. (c) `fl_mesh`'s
-    `fabric_bytes` readings equal to `fl_mesh_fabric_bytes` of
-    `fl_mesh_report(network="gaia")` at FEMNIST's width, for both
+    (traced on fake tensors in worker processes by `start_host_work`)
+    against their `max_memory_allocated`, within DRY_PEAK_BAND. (c)
+    `fl_mesh`'s `fabric_bytes` readings equal to `fl_mesh_fabric_bytes`
+    of `fl_mesh_report(network="gaia")` at FEMNIST's width, for both
     backends at every D. (d) `python -m repro_torch.launch.dryrun` on
-    DRYRUN_CLI and `python -m repro_torch.launch.roofline` on its
-    output, in a subprocess while (a)-(c) run: both exit 0."""
-    import multiprocessing
-    import tempfile
-    from concurrent.futures import ProcessPoolExecutor
-
+    DRYRUN_CLI (started by `start_host_work`) and `python -m
+    repro_torch.launch.roofline` on its output: both exit 0."""
     from repro_torch.configs import get_config
     from repro_torch.launch import roofline
     from repro_torch.launch.specs import InputShape
@@ -1713,79 +1911,56 @@ def phase_launch_analysis(torch, ctx):
     t0 = time.perf_counter()
     failures = []
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    with tempfile.TemporaryDirectory() as tmp:
-        cli = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
-             "--out", tmp], cwd=tmp, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-        try:
-            with ProcessPoolExecutor(
-                    len(TRAIN_ARCHS),
-                    mp_context=multiprocessing.get_context("spawn")) as ex:
-                futures = {a: ex.submit(_dry_train_peak, a)
-                           for a in TRAIN_ARCHS}
-                # (a) the bounds
-                bounds = []
-                for st in ctx["timed_steps"]:
-                    cfg = get_config(st["arch"])
-                    shape = InputShape(st["mode"], st["mode"], st["seq"],
-                                       st["batch"])
-                    b = roofline.bound_ms(cfg, shape, card=ctx["kind"])
-                    row = dict(arch=cfg.name, mode=st["mode"],
-                               batch=st["batch"], seq=st["seq"], ms=st["ms"],
-                               **b, bound_share=b["bound_ms"] / st["ms"])
-                    bounds.append(row)
-                    if st["ms"] < b["bound_ms"]:
-                        failures.append(f"{cfg.name} {st['mode']}: "
-                                        f"{st['ms']} ms under its bound "
-                                        f"{b['bound_ms']} ms")
-                # (c) the fabric bytes
-                t, runs = ctx["fl_mesh_runs"]
-                fabric = {}
-                for key, run in runs.items():
-                    rep = roofline.fl_mesh_report(
-                        "mamba2-370m", network="gaia",
-                        num_shards=run["shards"])
-                    want = roofline.fl_mesh_fabric_bytes(rep, run["backend"],
-                                                         t)
-                    fabric[key] = dict(read=run["fabric_bytes_per_round"],
-                                       report=want,
-                                       halo_rows_per_device=rep["halo_rows"],
-                                       per_shard_rows=rep["per_shard_rows"])
-                    if run["fabric_bytes_per_round"] != want:
-                        failures.append(f"fabric bytes {key}: read "
-                                        f"{run['fabric_bytes_per_round']}, "
-                                        f"report {want}")
-                if t != MAIN_SHAPE["t"]:
-                    failures.append(f"fl_mesh ran T={t}, not FEMNIST's")
-                # (b) the dry run's peaks
-                peaks = {}
-                measured = {st["arch"]: st["peak_bytes"]
-                            for st in ctx["timed_steps"]
-                            if st["mode"] == "train"}
-                for arch, fut in futures.items():
-                    dry = fut.result()
-                    ratio = measured[arch] / dry["peak_bytes"]
-                    peaks[arch] = dict(max_memory_allocated=measured[arch],
-                                       **dry, measured_over_dry=ratio)
-                    if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
-                        failures.append(f"{arch}: max_memory_allocated / dry"
-                                        f" peak {ratio} outside "
-                                        f"{DRY_PEAK_BAND}")
-            out, err = cli.communicate(timeout=600)
-        finally:
-            if cli.poll() is None:
-                cli.kill()
-                cli.communicate()
-        # (d) the CLIs
-        roof = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.roofline", tmp],
-            cwd=tmp, env=env, capture_output=True, text=True, timeout=120)
-        clis = dict(dryrun_rc=cli.returncode, dryrun_tail=err[-600:],
-                    roofline_rc=roof.returncode,
-                    table=roof.stdout.strip().splitlines(),
-                    seconds=time.perf_counter() - t0)
-    if cli.returncode or roof.returncode or len(clis["table"]) != 4:
+    # (a) the bounds
+    bounds = []
+    for st in ctx["timed_steps"]:
+        cfg = get_config(st["arch"])
+        shape = InputShape(st["mode"], st["mode"], st["seq"], st["batch"])
+        b = roofline.bound_ms(cfg, shape, card=ctx["kind"])
+        row = dict(arch=cfg.name, mode=st["mode"], batch=st["batch"],
+                   seq=st["seq"], ms=st["ms"], **b,
+                   bound_share=b["bound_ms"] / st["ms"])
+        bounds.append(row)
+        if st["ms"] < b["bound_ms"]:
+            failures.append(f"{cfg.name} {st['mode']}: {st['ms']} ms under "
+                            f"its bound {b['bound_ms']} ms")
+    # (c) the fabric bytes
+    t, runs = ctx["fl_mesh_runs"]
+    fabric = {}
+    for key, run in runs.items():
+        rep = roofline.fl_mesh_report("mamba2-370m", network="gaia",
+                                      num_shards=run["shards"])
+        want = roofline.fl_mesh_fabric_bytes(rep, run["backend"], t)
+        fabric[key] = dict(read=run["fabric_bytes_per_round"], report=want,
+                           halo_rows_per_device=rep["halo_rows"],
+                           per_shard_rows=rep["per_shard_rows"])
+        if run["fabric_bytes_per_round"] != want:
+            failures.append(f"fabric bytes {key}: read "
+                            f"{run['fabric_bytes_per_round']}, report {want}")
+    if t != MAIN_SHAPE["t"]:
+        failures.append(f"fl_mesh ran T={t}, not FEMNIST's")
+    # (b) the dry run's peaks
+    peaks = {}
+    measured = {st["arch"]: st["peak_bytes"] for st in ctx["timed_steps"]
+                if st["mode"] == "train"}
+    for arch in TRAIN_ARCHS:
+        dry = host_result(ctx, f"dry_peak/{arch}")
+        ratio = measured[arch] / dry["peak_bytes"]
+        peaks[arch] = dict(max_memory_allocated=measured[arch], **dry,
+                           measured_over_dry=ratio)
+        if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
+            failures.append(f"{arch}: max_memory_allocated / dry peak "
+                            f"{ratio} outside {DRY_PEAK_BAND}")
+    # (d) the CLIs
+    dry_cli = host_result(ctx, "dryrun_cli")
+    tmp = ctx["host_work"]["tmp"]
+    roof = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", tmp],
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=120)
+    clis = dict(dryrun_rc=dry_cli["rc"], dryrun_tail=dry_cli["stderr_tail"],
+                dryrun_s=dry_cli["seconds"], roofline_rc=roof.returncode,
+                table=roof.stdout.strip().splitlines())
+    if dry_cli["rc"] or roof.returncode or len(clis["table"]) != 4:
         failures.append(f"CLIs: {clis}")
     emit(phase="launch_analysis", ok=not failures,
          seconds=time.perf_counter() - t0, nvidia_smi=ctx["smi"],
@@ -2121,39 +2296,61 @@ def _grid_engines(torch) -> dict:
                 device_ops=counts)
 
 
-def _scorer_rates() -> dict:
-    """(b) `CandidateScorer` on gaia / femnist's ring overlay at 6,400
-    rounds: one seeded random candidate set (multiplicities 1..5) per
-    count in SCORER_CANDIDATES, scored on both backends, bit-equal;
-    candidates per second of each."""
+def _scorer_sets():
+    """gaia, FEMNIST, the ring overlay and one seeded random candidate set
+    (multiplicities 1..5) per count in SCORER_CANDIDATES."""
     import numpy as np
     from repro_torch.core.delay import FEMNIST
-    from repro_torch.design import batched
     from repro_torch.design.catalog import ring_topology
     from repro_torch.networks.registry import get_network
 
     gaia = get_network("gaia")
     overlay = ring_topology(gaia, FEMNIST).graph
     rng = np.random.default_rng(22)
+    sets = {count: [tuple(int(x) for x in rng.integers(1, 6,
+                                                       len(overlay.pairs)))
+                    for _ in range(count)] for count in SCORER_CANDIDATES}
+    return gaia, FEMNIST, overlay, sets
+
+
+def _score(backend: str) -> dict:
+    """Each candidate set of `_scorer_sets` scored on ``backend`` at 6,400
+    rounds: count -> (scores, seconds)."""
+    from repro_torch.design import batched
+
+    gaia, femnist, overlay, sets = _scorer_sets()
+    out = {}
+    for count, cands in sets.items():
+        scorer = batched.CandidateScorer(gaia, femnist, overlay,
+                                         rounds=6400, backend=backend)
+        t0 = time.perf_counter()
+        scores = scorer.score(cands)
+        out[count] = (scores, time.perf_counter() - t0)
+    return out
+
+
+def _scorer_rates(ctx) -> dict:
+    """(b) `CandidateScorer` on gaia / femnist's ring overlay at 6,400
+    rounds: one seeded random candidate set per count in
+    SCORER_CANDIDATES, scored on the card here and on the host in a
+    worker process (`start_host_work`), bit-equal; candidates per
+    second of each."""
+    import numpy as np
+
+    dev = _score("torch")
+    host = host_result(ctx, "scores_numpy")
     out = {}
     for count in SCORER_CANDIDATES:
-        cands = [tuple(int(x) for x in rng.integers(1, 6, len(overlay.pairs)))
-                 for _ in range(count)]
-        row = {}
-        scores = {}
-        for backend in ("torch", "numpy"):
-            scorer = batched.CandidateScorer(gaia, FEMNIST, overlay,
-                                             rounds=6400, backend=backend)
-            t0 = time.perf_counter()
-            scores[backend] = scorer.score(cands)
-            sec = time.perf_counter() - t0
-            row[backend] = dict(seconds=sec, candidates_per_s=count / sec)
-        if not np.array_equal(scores["torch"], scores["numpy"]):
+        row = {name: dict(seconds=res[count][1],
+                          candidates_per_s=count / res[count][1])
+               for name, res in (("torch", dev), ("numpy", host))}
+        if not np.array_equal(dev[count][0], host[count][0]):
             raise AssertionError(f"scorer: torch != numpy at C={count}")
         row["torch_over_numpy"] = (row["torch"]["candidates_per_s"]
                                    / row["numpy"]["candidates_per_s"])
         out[str(count)] = row
-    return dict(rounds=6400, candidates=out, scores_equal=True)
+    return dict(rounds=6400, candidates=out, scores_equal=True,
+                numpy_in="a worker process, beside the card phases")
 
 
 def _population() -> dict:
@@ -2331,7 +2528,8 @@ def phase_design_search(torch, ctx):
     t_phase = time.perf_counter()
     parts = {}
     for name, fn in (("grid", lambda: _grid_engines(torch)),
-                     ("scorer", _scorer_rates), ("population", _population),
+                     ("scorer", lambda: _scorer_rates(ctx)),
+                     ("population", _population),
                      ("controller", lambda: _controller(torch)),
                      ("cli", _search_cli)):
         t0 = time.perf_counter()
@@ -2371,12 +2569,23 @@ FA_CASES = [
     (1, 8, 1, 40, 64, 0, 0, "bfloat16"),      # S under one key tile
     (2, 8, 1, 333, 64, 0, 0, "bfloat16"),     # ragged 128-key tiles
     (1, 4, 2, 520, 128, 200, 130, "bfloat16"),  # window/prefix across tiles
+    # hd 256 on the wgmma route, in 64-key tiles
+    (1, 8, 1, 40, 256, 0, 0, "bfloat16"),     # S under one key tile
+    (2, 8, 1, 333, 256, 0, 0, "bfloat16"),    # ragged 64-key tiles
+    (1, 14, 2, 300, 256, 0, 0, "bfloat16"),   # G=7: 126 rows a CTA
+    (1, 8, 1, 600, 256, 0, 256, "bfloat16"),  # paligemma's mask, four tiles
+    (1, 4, 2, 520, 256, 200, 130, "bfloat16"),  # window/prefix across tiles
+    (1, 1, 1, 256, 256, 8, 0, "bfloat16"),    # rows masked over whole tiles
 ]
 #: q, k, v as column slices of one fused (B, S, (Hq + 2 Hkv) hd)
 #: projection, so q's sequence stride is not Hq hd.
 FA_FUSED = (2, 28, 4, 300, 128, 0, 0, "bfloat16")
+#: q's rows off the 16-byte grid (a row stride of hd + 4): the CUDA cores
+FA_MISALIGNED = (1, 4, 2, 72, 256, 8, 16, "bfloat16")
 FA_MAIN = (4, 32, 4, 2048, 128, 0, 0, "bfloat16")   # yi-9b prefill
 FA_ZAMBA2 = (4, 32, 32, 2048, 64, 0, 0, "bfloat16")  # zamba2-1.2b prefill
+#: paligemma-3b's prefill: MQA with a group of 8, hd 256, prefix 256
+FA_PALIGEMMA = (4, 8, 1, 2048, 256, 0, 256, "bfloat16")
 # decode_attention cases: (b, hq, hkv, s, hd, dtype)
 DEC_CASES = [
     (2, 4, 2, 128, 32, "float32"),
@@ -2450,7 +2659,6 @@ def device_ms(torch, fn, iters: int, warmup: int = 3,
     short kernels while keeping those of synchronised calls (PERF.md).
     After six blind profiles the reading is None (not measured; the
     callers' CUDA-event times stand) and a line says so."""
-    from torch.autograd import DeviceType
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -2461,8 +2669,7 @@ def device_ms(torch, fn, iters: int, warmup: int = 3,
                 fn()
                 if sync_each:
                     torch.cuda.synchronize()
-        kernels = [ev for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA]
+        kernels = device_averages(prof)
         us = sum(ev.self_device_time_total for ev in kernels
                  if name is None or name in ev.key)
         if us > 0:
@@ -2473,23 +2680,28 @@ def device_ms(torch, fn, iters: int, warmup: int = 3,
     return None
 
 
-def _fa_inputs(torch, case, gen, fused=False):
+def _fa_inputs(torch, case, gen, layout="contiguous"):
+    """Seeded q, k, v of ``case``: contiguous, sliced from one fused qkv
+    projection (``layout="fused"``), or with q's rows off the 16-byte
+    grid (``"misaligned"``: a row stride of hd + 4)."""
     b, hq, hkv, s, hd, _, _, dt = case
     dtype = getattr(torch, dt)
-    if fused:
+    if layout == "fused":
         qkv = torch.randn((b, s, (hq + 2 * hkv) * hd), generator=gen,
                           device="cuda", dtype=torch.float32).to(dtype)
         return [x.unflatten(-1, (-1, hd)) for x in
                 qkv.split((hq * hd, hkv * hd, hkv * hd), dim=-1)]
-    return [torch.randn((b, s, h, hd), generator=gen, device="cuda",
-                        dtype=torch.float32).to(dtype)
-            for h in (hq, hkv, hkv)]
+    pad = 4 if layout == "misaligned" else 0
+    q, k, v = [torch.randn((b, s, h, hd + pad), generator=gen,
+                           device="cuda", dtype=torch.float32).to(dtype)
+               for h in (hq, hkv, hkv)]
+    return q[..., :hd], k[..., :hd].contiguous(), v[..., :hd].contiguous()
 
 
-def _fa_want_route(case) -> str:
-    """The kernel's route rule for contiguous inputs of group <= 128."""
-    return ("wgmma" if case[7] == "bfloat16" and case[4] in (64, 128)
-            else "cuda_core")
+def _fa_want_route(case, layout="contiguous") -> str:
+    """The kernel's route rule for inputs of group <= 128."""
+    return ("wgmma" if case[7] == "bfloat16" and case[4] in (64, 128, 256)
+            and layout != "misaligned" else "cuda_core")
 
 
 def ptxas_functions(log: str) -> dict:
@@ -2513,23 +2725,43 @@ def ptxas_functions(log: str) -> dict:
     return out
 
 
-def _fa_sdpa(torch, q, k, v):
+def _fa_keep(torch, s: int, window: int, prefix: int):
+    """The (S, S) boolean mask of the (query, key) pairs the kernel
+    keeps: causal, the window, the bidirectional prefix."""
+    i = torch.arange(s, device="cuda")[:, None]
+    j = torch.arange(s, device="cuda")[None, :]
+    keep = j <= i
+    if window:
+        keep &= (i - j) < window
+    if prefix:
+        keep |= (i < prefix) & (j < prefix)
+    return keep
+
+
+def _fa_sdpa(torch, q, k, v, keep=None):
+    """SDPA (the yardstick) on the kernel's inputs: causal, or with the
+    boolean mask ``keep``."""
     import torch.nn.functional as F
+    mask = dict(is_causal=True) if keep is None else dict(attn_mask=keep)
     return lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=q.shape[2] != k.shape[2])
+        enable_gqa=q.shape[2] != k.shape[2], **mask)
 
 
-def _fa_bound(ctx, case) -> dict:
-    """Causal work and bytes of one call at ``case``, and the least time
-    the card could take for it."""
+def _fa_bound(ctx, case, pairs=None) -> dict:
+    """Work and bytes of one call at ``case`` over ``pairs`` kept (query,
+    key) pairs (the causal ones by default), and the least time the card
+    could take for it."""
     b, hq, hkv, s, hd = case[:5]
-    flops = 4 * b * hq * hd * (s * (s + 1) // 2)  # causal (qpos, kpos) pairs
+    if pairs is None:
+        pairs = s * (s + 1) // 2
+    flops = 4 * b * hq * hd * pairs
     nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
     bw, _, rate_key = card_rates(ctx["kind"])
     peak = bf16_peak(ctx["kind"])
     bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
-    return dict(flops=flops, bytes=nbytes, bound_ms=max(bytes_ms, ops_ms),
+    return dict(pairs=pairs, flops=flops, bytes=nbytes,
+                bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 rates=dict(card=rate_key, hbm_bytes_per_s=bw,
                            bf16_flop_per_s=peak))
@@ -2558,15 +2790,17 @@ def phase_flash_attention(torch, ctx):
                              f"{spills}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs, routes = {}, {}
-    for case, fused in ([(c, False) for c in FA_CASES + [FA_MAIN]]
-                        + [(FA_FUSED, True)]):
-        q, k, v = _fa_inputs(torch, case, gen, fused)
+    for case, layout in ([(c, "contiguous") for c in FA_CASES + [FA_MAIN]]
+                         + [(FA_FUSED, "fused"),
+                            (FA_MISALIGNED, "misaligned")]):
+        q, k, v = _fa_inputs(torch, case, gen, layout)
         win, pre, dt = case[5], case[6], case[7]
-        what = f"flash_attention {case}{' fused' if fused else ''}"
+        what = (f"flash_attention {case}"
+                f"{'' if layout == 'contiguous' else ' ' + layout}")
         routes[what] = ops.route(q, k, v)
-        if routes[what] != _fa_want_route(case):
+        if routes[what] != _fa_want_route(case, layout):
             raise AssertionError(f"{what}: route {routes[what]}, expected "
-                                 f"{_fa_want_route(case)}")
+                                 f"{_fa_want_route(case, layout)}")
         got = ops.flash_attention(q, k, v, window=win, prefix=pre)
         torch.cuda.synchronize()
         errs[what] = _compare(torch, got, plain(q, k, v, win, pre), dt, what)
@@ -2600,6 +2834,8 @@ def phase_flash_attention(torch, ctx):
     zamba2["achieved_tflop_per_s"] = (zamba2["flops"] / zamba2["kernel_ms"]
                                       / 1e9)
     del qz, kz, vz
+    paligemma = _fa_masked_row(torch, ctx, FA_PALIGEMMA, gen, 20, fp32=True)
+    ctx["flash_attention_paligemma"] = paligemma
     b, hq, hkv, s, hd = FA_MAIN[:5]
     emit(phase="flash_attention", ok=True,
          shape=dict(b=b, s=s, hq=hq, hkv=hkv, hd=hd, dtype="bfloat16",
@@ -2610,7 +2846,8 @@ def phase_flash_attention(torch, ctx):
          library_max_abs_diff=lib_err, fp32_row_rel_tol=FP32_ROW_REL_TOL[
              "flash_attention"],
          achieved_tflop_per_s=bound["flops"] / kernel_ms / 1e9, **bound,
-         zamba2=dict(shape=list(FA_ZAMBA2[:5]), **zamba2))
+         zamba2=dict(shape=list(FA_ZAMBA2[:5]), **zamba2),
+         paligemma=paligemma)
 
 
 def _dec_caches(torch, case, gen):
@@ -2724,7 +2961,6 @@ def device_ops_per_call(torch, fn, iters: int = 50) -> tuple:
     most five times. The profiler drops the records of short kernels,
     more of them as the process ages (PERF.md), so a reading can fall
     short of the truth; it cannot exceed it."""
-    from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     seen, names, blind = [], set(), 0
@@ -2733,8 +2969,7 @@ def device_ops_per_call(torch, fn, iters: int = 50) -> tuple:
             for _ in range(iters):
                 fn()
                 torch.cuda.synchronize()
-        ops = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA]
+        ops = device_averages(prof)
         if not ops:
             blind += 1
             continue
@@ -3216,16 +3451,15 @@ def device_ms_by_kernel(torch, fn, iters: int, stem: str) -> dict:
     the profile reads as absent: the profiler drops records of short
     kernels now and then (PERF.md)."""
     import re
-    from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     with profiled(torch) as prof:
         for _ in range(iters):
             fn()
     out: dict = {}
-    for ev in prof.key_averages():
+    for ev in device_averages(prof):
         m = re.search(rf"({stem}\w*)", ev.key)
-        if ev.device_type == DeviceType.CUDA and m:
+        if m:
             out[m.group(1)] = (out.get(m.group(1), 0.0)
                                + ev.self_device_time_total / 1e3 / iters)
     return out
@@ -3653,7 +3887,6 @@ def _drive(torch, engine, requests, *, profile=False) -> dict:
     from SERVE_PROFILE_AT on run under the profiler, again on the next
     steps when a profile saw no device record (at most five times); they
     are left out of the times."""
-    from torch.autograd import DeviceType
     for r in requests:
         engine.submit(r)
     times, prof, blind = [], None, 0
@@ -3664,8 +3897,7 @@ def _drive(torch, engine, requests, *, profile=False) -> dict:
             with profiled(torch) as p:
                 for _ in range(SERVE_PROFILE_STEPS):
                     engine.step()
-            ev = [e for e in p.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+            ev = device_averages(p)
             if not ev:
                 blind += 1
                 continue
@@ -3872,7 +4104,6 @@ def _fleet(torch, ctx, ckpt_dir) -> tuple:
     from repro_torch.serving import (RegionalFleet, Request, TrafficConfig,
                                      generate_requests, sweep_loads)
     from repro_torch.serving.engine import WARMUP_STEPS
-    from torch.autograd import DeviceType
     cfg = TrafficConfig(**FLEET_TRAFFIC)
     out, results, tokens, fleets = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
@@ -3941,8 +4172,8 @@ def _fleet(torch, ctx, ckpt_dir) -> tuple:
         with profiled(torch) as p:
             for _ in range(4):
                 eng.step()
-        n = sum(e.count for e in p.key_averages()
-                if e.device_type == DeviceType.CUDA and "decode_attn" in e.key)
+        n = sum(e.count for e in device_averages(p)
+                if "decode_attn" in e.key)
         if n:
             seen.append(n / (eng.steps - before))
             break
@@ -4090,65 +4321,60 @@ FAMILY_REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:75"}
 
 
-def _fa_family_row(torch, ctx, cfg, window: int, prefix: int) -> dict:
-    """`flash_attention` at a family's prefill shape (4 x 2048, bf16, the
-    layer's window and prefix) on seeded random inputs: against its plain
-    version within `_tol`, timed beside the plain version, SDPA with the
-    same boolean mask (a yardstick the port never calls) and the bound
-    for the (query, key) pairs the mask keeps."""
-    import torch.nn.functional as F
+def _fa_family_case(cfg, window: int = 0, prefix: int = 0) -> tuple:
+    """A family's prefill attention as a flash_attention case (bf16)."""
+    b, s = PREFILL_SHAPE
+    return (b, cfg.num_heads, cfg.num_kv_heads, s, cfg.head_dim, window,
+            prefix, "bfloat16")
+
+
+def _fa_masked_row(torch, ctx, case, gen, iters: int,
+                   fp32: bool = False) -> dict:
+    """`flash_attention` at ``case`` (bf16, causal, its window and prefix)
+    on seeded random inputs: on the rule's route, against its plain
+    version within `_tol` (with ``fp32`` also within FP32_ROW_REL_TOL per
+    row of the plain version run in fp32), timed over ``iters`` calls
+    beside the plain version, SDPA with the same boolean mask (a
+    yardstick the port never calls) and the bound for the (query, key)
+    pairs the mask keeps."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    b, s = PREFILL_SHAPE
-    case = (b, cfg.num_heads, cfg.num_kv_heads, s, cfg.head_dim, window,
-            prefix, "bfloat16")
-    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, hq, hkv, s, hd, window, prefix, dt = case
     q, k, v = _fa_inputs(torch, case, gen)
 
-    def plain():
+    def plain(q=q, k=k, v=v):
         return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), window=window,
                                    prefix=prefix).transpose(1, 2)
 
-    i = torch.arange(s, device="cuda")[:, None]
-    j = torch.arange(s, device="cuda")[None, :]
-    keep = j <= i
-    if window:
-        keep &= (i - j) < window
-    if prefix:
-        keep |= (i < prefix) & (j < prefix)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=keep, enable_gqa=q.shape[2] != k.shape[2])
-
-    what = f"flash_attention {cfg.name} {case}"
+    what = f"flash_attention {case}"
+    route = ops.route(q, k, v)
+    if route != _fa_want_route(case):
+        raise AssertionError(f"{what}: route {route}, expected "
+                             f"{_fa_want_route(case)}")
+    keep = _fa_keep(torch, s, window, prefix)
+    sdpa = _fa_sdpa(torch, q, k, v, keep)
     got = ops.flash_attention(q, k, v, window=window, prefix=prefix)
-    err = _compare(torch, got, plain(), "bfloat16", what)
+    err = _compare(torch, got, plain(), dt, what)
+    held = (dict(vs_fp32_plain=_hold_fp32(
+        torch, got, plain(q.float(), k.float(), v.float()),
+        "flash_attention", what)) if fp32 else {})
     lib_err = float((sdpa().transpose(1, 2).float() - got.float())
                     .abs().max())
+    del got
     kernel_ms = cuda_ms(torch, lambda: ops.flash_attention(
-        q, k, v, window=window, prefix=prefix), 10)
+        q, k, v, window=window, prefix=prefix), iters)
     plain_ms = cuda_ms(torch, plain, 2, warmup=1)
-    library_ms = cuda_ms(torch, sdpa, 10)
-    pairs = int(keep.sum())
-    flops = 4 * b * cfg.num_heads * cfg.head_dim * pairs
-    nbytes = 2 * (2 * b * s * cfg.num_heads * cfg.head_dim
-                  + 2 * b * s * cfg.num_kv_heads * cfg.head_dim)
-    bw, _, _ = card_rates(ctx["kind"])
-    bytes_ms = nbytes / bw * 1e3
-    ops_ms = flops / bf16_peak(ctx["kind"]) * 1e3
-    return dict(shape=dict(b=b, s=s, hq=cfg.num_heads, hkv=cfg.num_kv_heads,
-                           hd=cfg.head_dim, window=window, prefix=prefix,
-                           dtype="bfloat16"),
-                route=ops.route(q, k, v), max_abs_err=err, ms=kernel_ms,
+    library_ms = cuda_ms(torch, sdpa, iters)
+    bound = _fa_bound(ctx, case, int(keep.sum()))
+    del bound["rates"]
+    return dict(shape=dict(b=b, s=s, hq=hq, hkv=hkv, hd=hd, window=window,
+                           prefix=prefix, dtype=dt),
+                route=route, max_abs_err=err, ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
-                library_max_abs_diff=lib_err,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                pairs=pairs, flops=flops, bytes=nbytes,
-                achieved_tflop_per_s=flops / kernel_ms / 1e9)
+                library_max_abs_diff=lib_err, **bound,
+                achieved_tflop_per_s=bound["flops"] / kernel_ms / 1e9,
+                **held)
 
 
 def _family_prefill(torch, cfg, params) -> dict:
@@ -4172,12 +4398,14 @@ def _family_prefill(torch, cfg, params) -> dict:
     step = make_prefill_step(cfg, impl="kernel")
     with torch.inference_mode():
         ops.flash_attention.launches = 0
+        ops.flash_attention.launches_by_route.update(wgmma=0, cuda_core=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = step(params, batch)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = ops.flash_attention.launches
+        routes = dict(ops.flash_attention.launches_by_route)
         times = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -4188,6 +4416,7 @@ def _family_prefill(torch, cfg, params) -> dict:
         ref = make_prefill_step(cfg, impl="reference")(params, batch)
     ms = min(times) * 1e3
     return dict(batch=b, seq=s, prefix=p, flash_attention_launches=launches,
+                flash_attention_routes=routes,
                 first_call_s=first_s, ms_per_prefill=ms,
                 ms_runs=[t * 1e3 for t in times],
                 tokens_per_s=b * s / (ms / 1e3),
@@ -4228,12 +4457,18 @@ def _family_decode(torch, ctx, cfg, params, live_check=True) -> dict:
                 decode_attention_main_path=live)
 
 
-def _family_checks(cfg, pre, dec, tol) -> list:
+def _family_checks(cfg, pre, dec, tol, route) -> list:
+    """The family's failed checks; ``route``: the one the rule gives the
+    prefill's flash_attention inputs (bf16 at hd 64/128/256: wgmma)."""
     fails = []
     if pre["flash_attention_launches"] != cfg.num_layers:
         fails.append(f"flash_attention launched "
                      f"{pre['flash_attention_launches']} times in one "
                      f"prefill of {cfg.num_layers} attention layers")
+    if pre["flash_attention_routes"][route] != cfg.num_layers:
+        fails.append(f"flash_attention routes in one prefill "
+                     f"{pre['flash_attention_routes']}, expected all "
+                     f"{cfg.num_layers} on {route}")
     if not pre["finite"] or pre["shape"] != [PREFILL_SHAPE[0],
                                              cfg.vocab_size]:
         fails.append(f"prefill logits not finite of shape "
@@ -4256,7 +4491,7 @@ def phase_llm_families(torch, ctx):
     """The moe, vlm and audio families and gemma3's mixed stack at full
     width and depth, bf16, random weights drawn on the card from seed 0,
     one model at a time (its weights released before the next):
-    `_family_prefill`, `_fa_family_row`, `_family_decode`, and for
+    `_family_prefill`, `_fa_masked_row`, `_family_decode`, and for
     FAMILY_FP32 the prefill and decode again with the weights in fp32.
     Each model's readings print before the checks, which run for every
     model before the phase fails."""
@@ -4283,8 +4518,11 @@ def phase_llm_families(torch, ctx):
                pre["ms_per_prefill"])
         torch.cuda.empty_cache()
         wins = tf.layer_windows(cfg)
-        fa = _fa_family_row(torch, ctx, cfg, int(wins.max()),
-                            prefix_tokens(cfg) if cfg.family == "vlm" else 0)
+        fa = _fa_masked_row(
+            torch, ctx, _fa_family_case(
+                cfg, int(wins.max()),
+                prefix_tokens(cfg) if cfg.family == "vlm" else 0),
+            torch.Generator(device="cuda").manual_seed(11), 10)
         torch.cuda.empty_cache()
         dec = _family_decode(torch, ctx, cfg, params)
         fp32 = None
@@ -4305,10 +4543,12 @@ def phase_llm_families(torch, ctx):
         del params
         torch.cuda.empty_cache()
         fails += [f"{cfg.name}: {f}" for f in _family_checks(
-            cfg, pre, dec, tol["bf16"])]
+            cfg, pre, dec, tol["bf16"],
+            _fa_want_route(_fa_family_case(cfg)))]
         if fp32 is not None:
             fails += [f"{cfg.name} fp32: {f}" for f in _family_checks(
-                cfg, fp32["prefill"], fp32["decode"], tol["fp32"])]
+                cfg, fp32["prefill"], fp32["decode"], tol["fp32"],
+                "cuda_core")]
         ctx["launches"][f"flash_attention_{arch}"] = \
             pre["flash_attention_launches"]
         ctx["launches"][f"decode_attention_{arch}"] = \
@@ -4317,7 +4557,7 @@ def phase_llm_families(torch, ctx):
         ctx["family_rows"] += [
             ("flash_attention", dict(
                 path=f"{cfg.name} prefill (4 x 2048, one launch a layer)",
-                shape=fa["shape"], route=fa["route"],
+                shape=fa["shape"], kernel_route=fa["route"],
                 launches=pre["flash_attention_launches"],
                 **{k: fa[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
@@ -4854,25 +5094,26 @@ def profile_window(torch, fn, iters: int, unprofiled_ms: float) -> dict:
     kernel name, the device's busy time per call and its idle share
     against the unprofiled time per call, each hand-written kernel's device
     time per call, and the host operators with the most CPU time of their
-    own."""
-    from torch.autograd import DeviceType
+    own; `window_s`, the seconds the whole window took, the profiler's
+    own processing included."""
     torch.cuda.synchronize()
+    t_window = time.perf_counter()
     with profiled(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    events = prof.key_averages()
     kern = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in events if ev.device_type == DeviceType.CUDA
-                   and ev.self_device_time_total > 0), reverse=True)
+                   for ev in device_averages(prof)
+                   if ev.self_device_time_total > 0), reverse=True)
     host = sorted(((ev.self_cpu_time_total, ev.key, ev.count)
-                   for ev in events if ev.device_type == DeviceType.CPU
-                   and ev.self_cpu_time_total > 0), reverse=True)
+                   for ev in host_averages(prof)
+                   if ev.self_cpu_time_total > 0), reverse=True)
     busy = sum(x[0] for x in kern) / 1e3 / iters
     return dict(
         calls=iters, device_busy_ms=busy, profiled_wall_ms=wall,
+        window_s=time.perf_counter() - t_window,
         unprofiled_ms=unprofiled_ms,
         idle_share=max(0.0, 1 - busy / unprofiled_ms),
         kernel_launches=sum(x[2] for x in kern) // iters,
@@ -5037,18 +5278,31 @@ def main() -> int:
               phase_run_fl_models,
               phase_topologies,
               phase_design_loop, phase_design_search]
-    for phase in phases:
-        try:
-            phase(torch, ctx)
-        except Exception as exc:
-            emit(phase=phase.__name__[len("phase_"):], ok=False,
-                 error=f"{type(exc).__name__}: {exc}")
-            traceback.print_exc()
-            return 1
+    walls = {}
+    try:
+        for phase in phases:
+            name = phase.__name__[len("phase_"):]
+            t0 = time.perf_counter()
+            try:
+                phase(torch, ctx)
+            except Exception as exc:
+                emit(phase=name, ok=False,
+                     error=f"{type(exc).__name__}: {exc}")
+                traceback.print_exc()
+                return 1
+            walls[name] = time.perf_counter() - t0
+            if name == HOST_WORK_AFTER:
+                start_host_work(ctx)
+    finally:
+        waited = stop_host_work(ctx)
+    emit(phase="timeline", ok=True, phase_wall_s=walls,
+         total_s=time.perf_counter() - T_START,
+         host_work=dict(after=HOST_WORK_AFTER, waited_s=waited))
     ea = "src/repro/kernels/gossip_combine/kernel.py:114"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = ctx["edge_aggregate_rows"]
+    pali = ctx["flash_attention_paligemma"]
 
     def ea_row(launches, timed, **what):
         return dict(_kernel_row(ctx, "edge_aggregate", ea), **what,
@@ -5079,6 +5333,13 @@ def main() -> int:
                     "src/repro/kernels/gossip_combine/kernel.py:46"),
         _kernel_row(ctx, "flash_attention",
                     "src/repro/kernels/flash_attention/kernel.py:104"),
+        dict(_kernel_row(ctx, "flash_attention",
+                         "src/repro/kernels/flash_attention/kernel.py:104"),
+             path="paligemma-3b prefill (one launch a layer); timed at "
+                  "FA_PALIGEMMA in phase flash_attention",
+             shape=pali["shape"], kernel_route=pali["route"],
+             launches=ctx["launches"]["flash_attention_paligemma_3b"],
+             **{k: pali[k] for k in keys}),
         _kernel_row(ctx, "decode_attention",
                     "src/repro/kernels/decode_attention/kernel.py:75"),
         *[dict(_kernel_row(ctx, "decode_attention",

@@ -19,9 +19,11 @@
 // Bound. The work is 4*hd flops per visible (query head, qpos, kpos)
 // triple: at the yi-9b prefill shape (B=4, S=2048, Hq=32, Hkv=4,
 // hd=128, causal) 137.4 GFLOP against 151 MB of q/k/v/out, at zamba2's
-// (B=4, S=2048, Hq=Hkv=32, hd=64, causal) 68.7 GFLOP against 134 MB. So
-// it is bound by operations on the card: 0.139 and 0.0695 ms at the
-// 989 TFLOP/s bf16 tensor-core peak, which only wgmma reaches.
+// (B=4, S=2048, Hq=Hkv=32, hd=64, causal) 68.7 GFLOP against 134 MB, at
+// paligemma's (B=4, S=2048, Hq=8, Hkv=1, hd=256, causal, prefix 256)
+// 69.8 GFLOP against 76 MB. So it is bound by operations on the card:
+// 0.139, 0.0695 and 0.0706 ms at the 989 TFLOP/s bf16 tensor-core peak,
+// which only wgmma reaches.
 //
 // Two routes, one result. Both: one CTA takes one (batch, KV head) and
 // a run of consecutive rows of the flattened (qpos, g) order, so all the
@@ -32,17 +34,18 @@
 // row of the CTA lies in the bidirectional prefix), which leaves the
 // result the same.
 //
-// * Tensor cores (bf16, hd 64/128, group <= 128, 16-byte aligned base
-//   and strides): TMA + wgmma, warp-specialised. A CTA of 3 warpgroups
-//   takes P = 128 / group query positions, R = P * group <= 128 rows.
-//   Warpgroup 0 is the producer: after `setmaxnreg.dec` one thread loads
-//   the CTA's Q once and then 128-key tiles of K and V into a ring of
-//   shared-memory stages through TMA (4-D tensor maps over (hd, heads,
-//   S, B) with the tensors' own strides, so rows past S come in as zeros;
-//   128-byte swizzle, an hd-128 tile as two 64-column boxes), each stage
-//   guarded by `full` mbarriers (K and V apart, with the expected bytes)
-//   and an `empty` one. Warpgroups 1 and 2 are consumers of 64 rows
-//   each (`setmaxnreg.inc` to 240): S = Q K^T by wgmma m64n128k16 from
+// * Tensor cores (bf16, hd 64/128/256, group <= 128, 16-byte aligned
+//   base and strides): TMA + wgmma, warp-specialised. A CTA of 3
+//   warpgroups takes P = 128 / group query positions, R = P * group <=
+//   128 rows. Warpgroup 0 is the producer: after `setmaxnreg.dec` one
+//   thread loads the CTA's Q once and then key tiles of K and V (128 keys
+//   at hd 64/128, 64 at hd 256: WgCfg) into a ring of shared-memory
+//   stages through TMA (4-D tensor maps over (hd, heads, S, B) with the
+//   tensors' own strides, so rows past S come in as zeros; 128-byte
+//   swizzle, a tile as hd/64 boxes of 64 columns), each stage guarded by
+//   `full` mbarriers (K and V apart, with the expected bytes) and an
+//   `empty` one. Warpgroups 1 and 2 are consumers of 64 rows each
+//   (`setmaxnreg.inc` to 240): S = Q K^T by wgmma m64n{keys}k16 from
 //   shared memory (both K-major), the online softmax on the accumulator
 //   in registers (exp2 with scale*log2(e) folded in; the mask is applied
 //   only on tiles that the CTA's rows do not all see in full, in int32),
@@ -51,15 +54,19 @@
 //   V read in its stored layout through the transpose-B bit. Row blocks
 //   run heaviest first (reverse causal order on the grid's y axis). The
 //   row sum l adds the unrounded p (the reference rounds p to bf16 before
-//   p@v). Not yet: ping-pong of the two consumers, softmax/MMA overlap
-//   within a warpgroup, clusters with TMA multicast.
-// * CUDA cores (fp32 inputs, or any other head dim, group or alignment):
-//   a CTA takes 4*RW rows; per key tile of 32 it stages K and V as fp32
-//   in shared memory; lane j computes the scores of key j for the warp's
-//   rows (float4 reads, row pitch hd+4 so the 8 lanes of a quarter warp
-//   hit distinct banks); the row max and sum go through warp shuffles;
-//   the probabilities go to shared memory and each lane accumulates its
-//   hd/32 output columns from them. PERF.md has both routes' times.
+//   p@v). At hd 256 Q takes 64 KB and a stage of 64-key K and V tiles 64
+//   KB, so two stages fit in 192 KB, one CTA an SM; a consumer thread
+//   holds O in 128 fp32 registers, S in 32 and P in 16. Not yet:
+//   ping-pong of the two consumers, softmax/MMA overlap within a
+//   warpgroup, clusters with TMA multicast.
+// * CUDA cores (fp32 inputs, hd 32, bf16 off the 16-byte grid, groups
+//   over 128): a CTA takes 4*RW rows; per key tile of 32 it stages K and
+//   V as fp32 in shared memory; lane j computes the scores of key j for
+//   the warp's rows (float4 reads, row pitch hd+4 so the 8 lanes of a
+//   quarter warp hit distinct banks); the row max and sum go through warp
+//   shuffles; the probabilities go to shared memory and each lane
+//   accumulates its hd/32 output columns from them. PERF.md has both
+//   routes' times.
 //
 // Interface. A plain C entry point, loaded with ctypes. It launches on
 // the stream it is given, allocates nothing, and returns 0 on success,
@@ -303,26 +310,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16, hd 64/128): TMA + wgmma, warp-specialised
+// Tensor-core route (bf16, hd 64/128/256): TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
 constexpr int kCuResultBase = 10000;  // added to a failed encode's CUresult
 constexpr int kWgThreads = 384;       // producer warpgroup + 2 consumers
 constexpr int kWgRows = 128;          // rows per CTA, 64 per consumer
-constexpr int kWgKeys = 128;          // keys per tile
 constexpr int kAtomCols = 64;         // bf16 columns of a 128-byte row
-constexpr int kAtomBytes = 128 * 128;  // 128 rows x 128 bytes
 constexpr int kConsumerThreads = 256;
 
 // Shared memory: Q | K stages | V stages | mbarriers, each tile a run of
-// 64-column atoms of 128 rows (128-byte swizzle, 1024-byte aligned).
+// 64-column atoms (128-byte swizzle, 1024-byte aligned): a Q atom holds
+// 128 rows, a K or V atom one tile's keys.
 template <int HD>
 struct WgCfg {
   static constexpr int kAtoms = HD / kAtomCols;
-  // shared memory in all: 160 KB at hd 128, 144 KB at hd 64
-  static constexpr int kStages = HD == 128 ? 2 : 4;
+  // keys per tile; shared memory in all: 192 KB at hd 256, 160 KB at hd
+  // 128, 144 KB at hd 64
+  static constexpr int kKeys = HD == 256 ? 64 : 128;
+  static constexpr int kStages = HD == 64 ? 4 : 2;
+  static constexpr int kQAtomBytes = kWgRows * 128;
+  static constexpr int kAtomBytes = kKeys * 128;  // of a K or V tile
   static constexpr int kTileBytes = kAtoms * kAtomBytes;
-  static constexpr int kKOff = kTileBytes;
+  static constexpr int kKOff = kAtoms * kQAtomBytes;
   static constexpr int kVOff = kKOff + kStages * kTileBytes;
   static constexpr int kBarOff = kVOff + kStages * kTileBytes;
   static constexpr int kNumBars = 1 + 3 * kStages;
@@ -430,9 +440,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// D (+)= A . B^T, A and B K-major in shared memory (64 x 16 and 64 x 16).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (+)= A . B^T, A and B K-major in shared memory (64 x 16 and 128 x 16).
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -512,6 +542,56 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D += A . B, A (64 x 16) in registers, B (16 x 256) MN-major in shared
+// memory (the transpose-B bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -519,7 +599,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap vmap, WgArgs a) {
   using Cfg = WgCfg<HD>;
   constexpr int NS = Cfg::kStages;
+  constexpr int NK = Cfg::kKeys;
   constexpr uint32_t kTile = Cfg::kTileBytes;
+  constexpr uint32_t kAtom = Cfg::kAtomBytes;
+  constexpr uint32_t kQAtom = Cfg::kQAtomBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
@@ -543,8 +626,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (in_prefix) kend = max(kend, min(a.prefix, S));
   const int kstart =
       (a.window > 0 && !in_prefix) ? max(0, q0 - a.window + 1) : 0;
-  const int tile0 = kstart / kWgKeys;
-  const int ntiles = (kend + kWgKeys - 1) / kWgKeys - tile0;
+  const int tile0 = kstart / NK;
+  const int ntiles = (kend + NK - 1) / NK - tile0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -565,22 +648,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_expect_tx(q_full, Cfg::kAtoms * a.rows * 128);
 #pragma unroll
       for (int c = 0; c < Cfg::kAtoms; ++c)
-        tma_load_4d(q_s + c * kAtomBytes, &qmap, q_full, c * kAtomCols,
+        tma_load_4d(q_s + c * kQAtom, &qmap, q_full, c * kAtomCols,
                     h * a.group, q0, b);
       for (int t = 0; t < ntiles; ++t) {
         const int st = t % NS;
         const int round = t / NS;
         if (round > 0) mbar_wait(empty + 8 * st, (round - 1) & 1);
-        const int k0 = (tile0 + t) * kWgKeys;
+        const int k0 = (tile0 + t) * NK;
         mbar_expect_tx(k_full + 8 * st, kTile);
 #pragma unroll
         for (int c = 0; c < Cfg::kAtoms; ++c)
-          tma_load_4d(k_s + st * kTile + c * kAtomBytes, &kmap,
+          tma_load_4d(k_s + st * kTile + c * kAtom, &kmap,
                       k_full + 8 * st, c * kAtomCols, h, k0, b);
         mbar_expect_tx(v_full + 8 * st, kTile);
 #pragma unroll
         for (int c = 0; c < Cfg::kAtoms; ++c)
-          tma_load_4d(v_s + st * kTile + c * kAtomBytes, &vmap,
+          tma_load_4d(v_s + st * kTile + c * kAtom, &vmap,
                       v_full + 8 * st, c * kAtomCols, h, k0, b);
       }
     }
@@ -612,24 +695,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     const uint64_t dq = smem_desc(q_s + cw * 64 * 128, 16, 1024);
     const uint64_t dk = smem_desc(k_s, 16, 1024);
-    const uint64_t dv = smem_desc(v_s, kAtomBytes, 1024);
+    const uint64_t dv = smem_desc(v_s, kAtom, 1024);
     mbar_wait(q_full, 0);
 
     for (int t = 0; t < ntiles; ++t) {
       const int st = t % NS;
       const uint32_t ph = (t / NS) & 1;
-      const int k0 = (tile0 + t) * kWgKeys;
+      const int k0 = (tile0 + t) * NK;
 
-      // S = Q K^T: 64 rows x 128 keys, hd/16 k-steps; k-step kk lies in
+      // S = Q K^T: 64 rows x NK keys, hd/16 k-steps; k-step kk lies in
       // atom kk/4 at byte 32*(kk%4) of each 128-byte row.
-      float s[64];
+      float s[NK / 2];
       mbar_wait(k_full + 8 * st, ph);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
-        wgmma_ss_n128(s, dq + (off >> 4), dk + ((st * kTile + off) >> 4),
-                      kk > 0);
+        const uint32_t col_off = (kk % 4) * 32;
+        const uint32_t q_off = (kk / 4) * kQAtom + col_off;
+        const uint32_t k_off = st * kTile + (kk / 4) * kAtom + col_off;
+        wgmma_ss(s, dq + (q_off >> 4), dk + (k_off >> 4), kk > 0);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -638,13 +722,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       // Element 4j+e of s: row row[e/2], key k0 + 8j + col + e%2. The
       // mask runs only where some real row of the CTA misses a key.
       const bool full =
-          k0 + kWgKeys <= S &&
-          (((!a.causal || k0 + kWgKeys - 1 <= q0) &&
+          k0 + NK <= S &&
+          (((!a.causal || k0 + NK - 1 <= q0) &&
             (a.window <= 0 || qhi - k0 < a.window)) ||
-           (a.prefix > 0 && qhi < a.prefix && k0 + kWgKeys <= a.prefix));
+           (a.prefix > 0 && qhi < a.prefix && k0 + NK <= a.prefix));
       if (!full) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (!visible32(qp[e / 2], k0 + 8 * j + col + (e % 2), a))
@@ -652,7 +736,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NK / 8; ++j) {
         mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
         mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
@@ -669,9 +753,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         m[r] = m_new;
         l[r] *= alpha[r];
       }
-      uint32_t pa[8][4];  // P in bf16 as the A fragments of 8 k-steps
+      uint32_t pa[NK / 16][4];  // P in bf16: A fragments of NK/16 k-steps
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NK / 8; ++j) {
         const float p0 = exp2f(fmaf(s[4 * j], sl2, -mu[0]));
         const float p1 = exp2f(fmaf(s[4 * j + 1], sl2, -mu[0]));
         const float p2 = exp2f(fmaf(s[4 * j + 2], sl2, -mu[1]));
@@ -689,11 +773,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         o[4 * j + 3] *= alpha[1];
       }
 
-      // O += P V: 8 k-steps of 16 keys, V MN-major (16 keys x hd).
+      // O += P V: NK/16 k-steps of 16 keys, V MN-major (16 keys x hd, the
+      // next 64 columns one atom on: the descriptor's leading offset).
       mbar_wait(v_full + 8 * st, ph);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kWgKeys / 16; ++kk)
+      for (int kk = 0; kk < NK / 16; ++kk)
         wgmma_rs(o, pa[kk], dv + ((st * kTile + kk * 16 * 128) >> 4));
       wgmma_commit();
       wgmma_wait0();
@@ -779,10 +864,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                      G, P);
   if (rc == 0)
     rc = encode_4d(&km, k, HD, a.kv_heads, a.seq, a.batch, a.k_sh, a.k_ss,
-                   a.k_sb, 1, kWgKeys);
+                   a.k_sb, 1, Cfg::kKeys);
   if (rc == 0)
     rc = encode_4d(&vm, v, HD, a.kv_heads, a.seq, a.batch, a.v_sh, a.v_ss,
-                   a.v_sb, 1, kWgKeys);
+                   a.v_sb, 1, Cfg::kKeys);
   if (rc != 0) return rc;
   WgArgs w;
   w.seq = static_cast<int>(a.seq);
@@ -843,8 +928,8 @@ int dispatch_hd(int head_dim, const void* q, const void* k, const void* v,
 // dims: batch, seq, kv_heads, group, q strides (b, s, h), k strides
 // (b, s, h), v strides (b, s, h), causal, window, prefix, tensor cores
 // -- 17 int64. The last asks for the wgmma route; the caller sets it
-// only for bf16 at hd 64/128 with group <= 128 and 16-byte aligned base
-// and strides. out is a contiguous (B, S, Hq, hd) array of the inputs'
+// only for bf16 at hd 64/128/256 with group <= 128 and 16-byte aligned
+// base and strides. out is a contiguous (B, S, Hq, hd) array of the inputs'
 // type.
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
                                    const void* k, const void* v, void* out,
@@ -877,6 +962,7 @@ extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
     switch (head_dim) {
       case 64: return launch_wgmma<64>(q, k, v, out, a, st);
       case 128: return launch_wgmma<128>(q, k, v, out, a, st);
+      case 256: return launch_wgmma<256>(q, k, v, out, a, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

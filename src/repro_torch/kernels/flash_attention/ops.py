@@ -10,16 +10,18 @@ It replaces the TPU kernel `_flash_kernel` of
 `repro.kernels.flash_attention.kernel`. On the card it is bound by
 operations: at the yi-9b prefill shape (B 4, S 2048, Hq 32, Hkv 4, hd
 128, causal) 137.4 GFLOP, 0.139 ms at the bf16 tensor-core peak. So bf16
-inputs at head_dim 64 or 128, with a group Hq / Hkv of at most 128 and
-16-byte aligned base and strides, take the `wgmma` route (`route`): TMA
-loads of K/V tiles into a ring of shared-memory stages, one producer
-warp and two consumer warpgroups on wgmma. Every other input (fp32, hd
-32 or 256, misaligned) takes the `cuda_core` route. The choice depends
-on dtype, head dim, group and alignment alone. A failed launch or
+inputs at head_dim 64, 128 or 256, with a group Hq / Hkv of at most 128
+and 16-byte aligned base and strides, take the `wgmma` route (`route`):
+TMA loads of K/V tiles (64 keys at hd 256, else 128) into a ring of
+shared-memory stages, one producer warp and two consumer warpgroups on
+wgmma. Every other input (fp32, hd 32, bf16 off the 16-byte grid, a
+group over 128) takes the `cuda_core` route. The choice depends on
+dtype, head dim, group and alignment alone. A failed launch or
 tensor-map encoding raises with its CUDA or CU result code: the op never
 falls back from the kernel to the plain version or to the other route,
 and any other device raises.
-`flash_attention.launches` counts kernel launches.
+`flash_attention.launches` counts kernel launches, and
+`flash_attention.launches_by_route` counts them by route.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 _KERNEL = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 WGMMA_MAX_GROUP = 128  # a CTA holds 128 rows: at least one query position
 #: The C entry point returns this plus the CUresult of a failed encoding.
 _CU_RESULT_BASE = 10000
@@ -94,7 +96,7 @@ def _check_cuda(q, k, v) -> None:
 
 def tensor_core_route(q, k, v) -> bool:
     """Whether the kernel takes its tensor-core (wgmma) route for these
-    inputs: bf16, head_dim 64/128, group Hq / Hkv <= 128, every base
+    inputs: bf16, head_dim 64/128/256, group Hq / Hkv <= 128, every base
     address and stride on 16 bytes (TMA's rule)."""
     return (q.dtype == torch.bfloat16 and q.shape[3] in WGMMA_HEAD_DIMS
             and q.shape[2] // k.shape[2] <= WGMMA_MAX_GROUP
@@ -127,10 +129,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    wgmma = tensor_core_route(q, k, v)
     dims = (ctypes.c_int64 * 17)(
         b, s, hkv, hq // hkv, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], int(bool(causal)), int(window), int(prefix),
-        int(tensor_core_route(q, k, v)))
+        int(wgmma))
     with torch.cuda.device(q.device):
         rc = _library().flash_attention_fwd(
             _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -138,6 +141,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
+    flash_attention.launches_by_route["wgmma" if wgmma else "cuda_core"] += 1
     if rc >= _CU_RESULT_BASE:
         raise RuntimeError("flash_attention: tensor map encoding failed, "
                            f"CUresult {rc - _CU_RESULT_BASE}")
@@ -147,3 +151,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"wgmma": 0, "cuda_core": 0}

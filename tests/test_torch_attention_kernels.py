@@ -49,6 +49,12 @@ FA_CASES = [
     (1, 8, 1, 40, 64, 0, 0, "float32"),       # S under one key tile
     (2, 8, 1, 333, 64, 0, 0, "float32"),      # ragged 128-key tiles
     (1, 4, 2, 520, 128, 200, 130, "float32"),  # window/prefix across tiles
+    # hd 256 (paligemma's), which the card takes in 64-key tiles: MQA with
+    # a group of 8, a prefix across a tile edge and a ragged last tile; a
+    # window
+    (1, 8, 1, 136, 256, 0, 40, "float32"),
+    (1, 8, 1, 136, 256, 0, 40, "bfloat16"),
+    (2, 4, 2, 72, 256, 24, 0, "float32"),
 ]
 DEC_CASES = [
     # (b, hq, hkv, s, hd, block_s, dtype) -- test_kernels.DEC_CASES

@@ -360,7 +360,7 @@ FA_CASES = [
     (1, 1, 1, 256, 128, 8, 0, torch.bfloat16),
     (4, 32, 4, 2048, 128, 0, 0, torch.bfloat16),
     (1, 4, 2, 72, 256, 0, 0, torch.float32),      # hd=256 (paligemma)
-    (1, 4, 2, 72, 256, 8, 16, torch.bfloat16),    # hd=256 on the CUDA cores
+    (1, 4, 2, 72, 256, 8, 16, torch.bfloat16),    # hd=256 on the wgmma route
     # what the wgmma route does differently: 126 rows a CTA (G=7, qwen2-7b's
     # group), S under one tile, ragged 128-key tiles, window and prefix
     # edges across tiles
@@ -368,6 +368,15 @@ FA_CASES = [
     (1, 8, 1, 40, 64, 0, 0, torch.bfloat16),
     (2, 8, 1, 333, 64, 0, 0, torch.bfloat16),
     (1, 4, 2, 520, 128, 200, 130, torch.bfloat16),
+    # hd 256 on the wgmma route, in 64-key tiles: S under one tile, ragged
+    # tiles, G=7, paligemma's MQA and prefix over four tiles, window and
+    # prefix edges across tiles, rows masked over whole tiles
+    (1, 8, 1, 40, 256, 0, 0, torch.bfloat16),
+    (2, 8, 1, 333, 256, 0, 0, torch.bfloat16),
+    (1, 14, 2, 300, 256, 0, 0, torch.bfloat16),
+    (1, 8, 1, 600, 256, 0, 256, torch.bfloat16),
+    (1, 4, 2, 520, 256, 200, 130, torch.bfloat16),
+    (1, 1, 1, 256, 256, 8, 0, torch.bfloat16),
 ]
 DEC_CASES = [
     (2, 4, 2, 128, 32, torch.float32),
@@ -410,6 +419,7 @@ def test_attention_ops_on_cpu_launch_nothing():
     q, k = _randn(gen, (1, 16, 4, 32), torch.float32, "cpu"), \
         _randn(gen, (1, 16, 2, 32), torch.float32, "cpu")
     before = (fa_ops.flash_attention.launches,
+              dict(fa_ops.flash_attention.launches_by_route),
               dec_ops.decode_attention.launches)
     torch.testing.assert_close(fa_ops.flash_attention(q, k, k),
                                _fa_plain(q, k, k), rtol=0, atol=0)
@@ -419,14 +429,15 @@ def test_attention_ops_on_cpu_launch_nothing():
         decode_attention_ref(q[:, 0], k.transpose(1, 2), k.transpose(1, 2),
                              lengths), rtol=0, atol=0)
     assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention.launches_by_route,
             dec_ops.decode_attention.launches) == before
 
 
 def _fa_expected_route(case):
-    """The route rule: bf16 at hd 64/128 (every case here has a group of
-    at most 128 and aligned, contiguous tensors) takes wgmma."""
+    """The route rule: bf16 at hd 64/128/256 (every case here has a
+    group of at most 128 and aligned, contiguous tensors) takes wgmma."""
     dt, hd = case[7], case[4]
-    return "wgmma" if dt == torch.bfloat16 and hd in (64, 128) else \
+    return "wgmma" if dt == torch.bfloat16 and hd in (64, 128, 256) else \
         "cuda_core"
 
 
@@ -451,7 +462,12 @@ ROUTE_CASES = [
     ("rows-off-16-bytes",  # stride 132: rows off the 16-byte grid
      lambda: (_bf16(1, 8, 4, 132)[..., :128], _bf16(1, 8, 4, 128),
               _bf16(1, 8, 4, 128)), "cuda_core"),
-    ("hd256", lambda: (_bf16(1, 8, 4, 256),) * 3, "cuda_core"),
+    ("hd256", lambda: (_bf16(1, 8, 4, 256),) * 3, "wgmma"),
+    ("hd256-rows-off-16-bytes",  # stride 260: rows off the 16-byte grid
+     lambda: (_bf16(1, 8, 4, 260)[..., :256], _bf16(1, 8, 4, 256),
+              _bf16(1, 8, 4, 256)), "cuda_core"),
+    ("hd256-group256", lambda: (_bf16(1, 8, 256, 256), _bf16(1, 8, 1, 256),
+                                _bf16(1, 8, 1, 256)), "cuda_core"),
     ("hd64", lambda: (_bf16(1, 8, 4, 64),) * 3, "wgmma"),
     ("hd32", lambda: (_bf16(1, 8, 4, 32),) * 3, "cuda_core"),
     ("group7", lambda: (_bf16(1, 8, 14, 128), _bf16(1, 8, 2, 128),
@@ -485,11 +501,14 @@ def test_flash_kernel_matches_plain_version(cuda, case):
     b, hq, hkv, s, hd, win, pre, dt = case
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (_randn(gen, (b, s, h, hd), dt, cuda) for h in (hq, hkv, hkv))
-    assert fa_ops.route(q, k, v) == _fa_expected_route(case)
+    route = _fa_expected_route(case)
+    assert fa_ops.route(q, k, v) == route
     before = fa_ops.flash_attention.launches
+    by_route = fa_ops.flash_attention.launches_by_route[route]
     out = fa_ops.flash_attention(q, k, v, window=win, prefix=pre)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == before + 1
+    assert fa_ops.flash_attention.launches_by_route[route] == by_route + 1
     assert out.dtype == dt and out.shape == q.shape
     torch.testing.assert_close(out.float(),
                                _fa_plain(q, k, v, win, pre).float(),
@@ -511,29 +530,36 @@ def test_flash_kernel_fused_projection_slice(cuda):
 def test_flash_kernel_refused_launch_raises(cuda, monkeypatch):
     """A wgmma-route input whose launch the card refuses (more row blocks
     than the grid's y axis holds: group 128 puts one query position in a
-    CTA, so S = 65536 needs 65536 of them) raises, and nothing falls back
-    to the plain version or to the CUDA-core route."""
+    CTA, so S = 65536 needs 65536 of them) raises, at hd 64 and at hd 256
+    (64-key tiles), and nothing falls back to the plain version or to the
+    CUDA-core route."""
     def no_plain(*args, **kwargs):
         raise AssertionError("fell back to the plain version")
     monkeypatch.setattr(fa_ops, "flash_attention_ref", no_plain)
     s = 65536
-    q = torch.zeros((1, s, 128, 64), dtype=torch.bfloat16, device=cuda)
-    k = torch.zeros((1, s, 1, 64), dtype=torch.bfloat16, device=cuda)
-    assert fa_ops.route(q, k, k) == "wgmma"
-    with pytest.raises(RuntimeError, match="cudaError 9"):
-        fa_ops.flash_attention(q, k, k)
+    for hd in (64, 256):
+        q = torch.zeros((1, s, 128, hd), dtype=torch.bfloat16, device=cuda)
+        k = torch.zeros((1, s, 1, hd), dtype=torch.bfloat16, device=cuda)
+        assert fa_ops.route(q, k, k) == "wgmma"
+        with pytest.raises(RuntimeError, match="cudaError 9"):
+            fa_ops.flash_attention(q, k, k)
+        del q, k
 
 
 @pytest.mark.cuda
 def test_flash_kernel_cuda_core_route_for_unaligned_bf16(cuda):
+    """bf16 q whose rows lie off the 16-byte grid (stride hd + 4) takes
+    the CUDA-core route, at hd 64 and at hd 256."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    q = _randn(gen, (2, 70, 4, 68), torch.bfloat16, cuda)[..., :64]
-    k, v = (_randn(gen, (2, 70, 2, 64), torch.bfloat16, cuda)
-            for _ in range(2))
-    assert not fa_ops.tensor_core_route(q, k, v)
-    out = fa_ops.flash_attention(q, k, v, window=9)
-    torch.testing.assert_close(out.float(), _fa_plain(q, k, v, 9).float(),
-                               **_tol(torch.bfloat16))
+    for hd in (64, 256):
+        q = _randn(gen, (2, 70, 4, hd + 4), torch.bfloat16, cuda)[..., :hd]
+        k, v = (_randn(gen, (2, 70, 2, hd), torch.bfloat16, cuda)
+                for _ in range(2))
+        assert fa_ops.route(q, k, v) == "cuda_core"
+        out = fa_ops.flash_attention(q, k, v, window=9)
+        torch.testing.assert_close(out.float(),
+                                   _fa_plain(q, k, v, 9).float(),
+                                   **_tol(torch.bfloat16))
 
 
 @pytest.mark.cuda
