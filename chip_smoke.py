@@ -87,6 +87,16 @@ Phases, each printing one JSON line:
    (bf16 and fp32) and timed there, L2-cold over all 48 layers' caches
    as phase 7 times it, which sets its `kernels` row; ms per step,
    tokens/s beside the weights' floor, and a profile;
+9b. sharded: the sharded LLM program on a one-rank NCCL (1, 1) ("data",
+   "model") DeviceMesh, yi-9b's weights as DTensors under the
+   production specs: prefill at the shape of 8 with the activation
+   anchors, 48 `flash_attention` launches all on wgmma (each on the
+   rank's head shard), logits bit-equal to the unsharded step; decode of
+   8 slots, 16 prompt and 8 greedy tokens, 48 `decode_attention`
+   launches a step, tokens and logits bit-equal; both paths timed beside
+   the unsharded ones (DTensor's host cost); the kv_seq_shard cache
+   layout refused by the kernel route; its launches are two more
+   `kernels` rows;
 10. ssd_scan: ptxas's spills of the bf16 kernels fail the phase; the
    kernel against its plain PyTorch version (fp32, as the op runs it on
    the CPU, cast to the input type) on the reference kernel tests' cases,
@@ -253,6 +263,10 @@ Phases, each printing one JSON line:
    equal to `fl_mesh_fabric_bytes` of `fl_mesh_report(network="gaia")`
    at FEMNIST's width. (d) The dry run's CLI (DRYRUN_CLI, run by the
    host workers) and the roofline CLI on its reports, each exiting 0;
+22b. sharded_host (no kernel launched): the host workers' sharded dry
+   run (SHARDED_DRYRUN_CLI: yi-9b x train_4k on a fake (16, 16) world,
+   one layer) exits 0 with collectives counted, and `fl8`'s dry states
+   order their pod-axis bytes overlay > half > isolated = 0;
 23. run_fl_models (run last with the next phase): the same as 4 for the
    Sent140 LSTM and the iNaturalist ResNet (gaia, multigraph, batch 32,
    lr 0.05, 30 rounds), then one steady-state cycle of each, timed and
@@ -316,8 +330,9 @@ profiler keeps, in a bare and a padded window, as the process ages.
 
 Host work that needs no card runs beside the card phases, from the end
 of phase HOST_WORK_AFTER, in worker processes of one thread each
-(`start_host_work`): the dry runs and the dryrun CLI of phase 22 and the
-host scorer of phase 26 (b); the phases that read it wait for it. The
+(`start_host_work`): the dry runs and the dryrun CLI of phase 22, the
+sharded dry runs of phase 22b and the host scorer of phase 26 (b); the
+phases that read it wait for it. The
 profiles are summed from the profiler's raw records (`device_averages`,
 `host_averages`: what `key_averages` gives, without the event tree that
 costs minutes of host time). Every JSON line carries `t_s`, the seconds
@@ -1812,18 +1827,19 @@ def _host_worker_init() -> None:
 
 
 class _DryrunCli:
-    """`python -m repro_torch.launch.dryrun` on DRYRUN_CLI, writing into
-    ``tmp``, in a process of its own; `get` gives its exit code, the end
-    of its errors and its seconds."""
+    """`python -m repro_torch.launch.dryrun` on ``args`` (DRYRUN_CLI by
+    default), writing into ``tmp``, in a process of its own; `get` gives
+    its exit code, the end of its errors and its seconds."""
 
-    def __init__(self, tmp: str):
+    def __init__(self, tmp: str, args=DRYRUN_CLI):
         import threading
 
         self.tmp, t0 = Path(tmp), time.perf_counter()
+        self.tmp.mkdir(exist_ok=True)
         self.err = open(self.tmp / "dryrun.err", "w")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
-             "--out", tmp], cwd=tmp,
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", str(self.tmp)], cwd=self.tmp,
             env=dict(os.environ, PYTHONPATH=str(SRC), **_ONE_THREAD),
             stdout=subprocess.DEVNULL, stderr=self.err)
         self.seconds = None
@@ -1850,10 +1866,26 @@ class _DryrunCli:
         self.err.close()
 
 
+#: The sharded program's dry run in the smoke: yi-9b x train_4k on the
+#: reference's (16, 16) mesh as rank 0 of a fake 256-rank world, one layer.
+SHARDED_DRYRUN_CLI = ("--arch", "yi-9b", "--shape", "train_4k", "--mesh",
+                      "h100x256", "--layers", "1")
+
+
+def _fl8_dry_states() -> list:
+    """`fl8`'s three dry states (mamba2-370m's ring round over the pod
+    axis of a fake (8, 8, 8) world), in a worker process."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import fl8
+    return [fl8.dry_state(name, fl8.ARCH, left, right)
+            for name, left, right in fl8.STATES]
+
+
 def start_host_work(ctx) -> None:
     """Start, in a pool of worker processes, the smoke's host work that
     needs no card: the dry runs of `llm_train`'s steps and the dryrun CLI
-    (read by `phase_launch_analysis`) and the host scorer's candidate
+    (read by `phase_launch_analysis`), the sharded dry run and `fl8`'s dry
+    states (read by `phase_sharded_host`) and the host scorer's candidate
     sets (read by `phase_design_search`)."""
     import multiprocessing
     import tempfile
@@ -1864,6 +1896,9 @@ def start_host_work(ctx) -> None:
     jobs = {f"dry_peak/{arch}": pool.apply_async(_dry_train_peak, (arch,))
             for arch in TRAIN_ARCHS}
     jobs["dryrun_cli"] = _DryrunCli(tmp)
+    jobs["dryrun_sharded"] = _DryrunCli(str(Path(tmp) / "sharded"),
+                                        SHARDED_DRYRUN_CLI)
+    jobs["fl8_dry"] = pool.apply_async(_fl8_dry_states)
     jobs["scores_numpy"] = pool.apply_async(_score, ("numpy",))
     ctx["host_work"] = dict(tmp=tmp, pool=pool, jobs=jobs, waited_s={})
 
@@ -1885,7 +1920,9 @@ def stop_host_work(ctx) -> dict:
     work = ctx.pop("host_work", None)
     if work is None:
         return {}
-    work["jobs"]["dryrun_cli"].stop()
+    for job in work["jobs"].values():
+        if isinstance(job, _DryrunCli):
+            job.stop()
     work["pool"].terminate()
     work["pool"].join()
     shutil.rmtree(work["tmp"], ignore_errors=True)
@@ -3301,8 +3338,228 @@ def phase_llm_decode(torch, ctx):
          decode_vs_prefill_rel_l2=cross_rel, rel_tol=LOGITS_REL_TOL,
          sample_tokens=out[nb - 1][:8], decode_attention_main_path=live,
          profile=profile)
-    del ctx["llm"], params, st_k, holder, run
+    del params, st_k, holder, run  # yi-9b's weights stay for phase sharded
     torch.cuda.empty_cache()
+
+
+#: Phase sharded: prompt tokens fed one by one, then greedy tokens.
+SHARDED_DECODE = (16, 8)
+SHARDED_TIMED_RUNS = 3
+
+
+@contextlib.contextmanager
+def _one_rank_mesh(torch):
+    """A one-rank NCCL world and its (1, 1) ("data", "model") DeviceMesh,
+    destroyed on exit."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield make_debug_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _best_ms(torch, fn, runs: int = SHARDED_TIMED_RUNS) -> float:
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times) * 1e3
+
+
+def phase_sharded(torch, ctx):
+    """The sharded LLM program on the card: yi-9b at full width and depth
+    in bf16, its weights DTensors under the production specs
+    (`launch/sharding.param_specs`) on a one-rank NCCL (1, 1) ("data",
+    "model") mesh. (a) Prefill at PREFILL_SHAPE with the activation
+    anchors set and impl="kernel": one `flash_attention` launch a layer,
+    all on the wgmma route, run on the rank's head shard (the attention's
+    `local_map`); the logits bit-equal to the unsharded prefill of the
+    same weights; both timed, the difference being DTensor's host work.
+    (b) Decode of DECODE_SLOTS slots, SHARDED_DECODE prompt and greedy
+    tokens, the caches DTensors under `decode_cache_specs`: one
+    `decode_attention` launch a layer a step, the same tokens and
+    bit-equal logits as the unsharded step, ms a step of both. (c) The
+    sequence-sharded cache layout (kv_seq_shard) on the kernel route
+    raises. The dry runs of the sharded program are read by
+    `phase_sharded_host`."""
+    import numpy as np
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import shard_ctx
+    from repro_torch.models import transformer as tf
+
+    cfg, params = _llm(torch, ctx)
+    P = sh.P
+    b, s = PREFILL_SHAPE
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    prefill = make_prefill_step(cfg, impl="kernel")
+    serve = make_serve_step(cfg, impl="kernel")
+    nb = DECODE_SLOTS
+    n_prompt, n_new = SHARDED_DECODE
+    prompts = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (nb, n_prompt)), device="cuda")
+    failures = []
+    with _one_rank_mesh(torch) as mesh, torch.no_grad(), \
+            implicit_replication():
+        dparams = sh.shard_tree(params, mesh,
+                                sh.param_specs(cfg, params, mesh=mesh))
+        dtokens = sh.shard_of(tokens, mesh, P("data", None))
+        # (a) prefill
+        shard_ctx.set_specs(act=P("data", None, None),
+                            channels=P("data", None, "model"),
+                            heads=P("data", None, "model", None), mesh=mesh)
+        try:
+            fa_ops.flash_attention.launches = 0
+            fa_ops.flash_attention.launches_by_route.update(wgmma=0,
+                                                            cuda_core=0)
+            got = prefill(dparams, {"tokens": dtokens})
+            torch.cuda.synchronize()
+            fa_launches = fa_ops.flash_attention.launches
+            routes = dict(fa_ops.flash_attention.launches_by_route)
+            got = got.full_tensor()
+            sharded_ms = _best_ms(torch, lambda: prefill(
+                dparams, {"tokens": dtokens}))
+        finally:
+            shard_ctx.clear()
+        want = prefill(params, {"tokens": tokens})
+        plain_ms = _best_ms(torch, lambda: prefill(params,
+                                                   {"tokens": tokens}))
+        ctx["launches"]["flash_attention_sharded"] = fa_launches
+        pre = dict(flash_attention_launches=fa_launches, routes=routes,
+                   logits_bit_equal=bool(torch.equal(got, want)),
+                   logits_rel_l2=_rel_l2(got, want),
+                   logits_max_abs_diff=float((got.float()
+                                              - want.float()).abs().max()),
+                   ms_sharded=sharded_ms, ms_unsharded=plain_ms,
+                   dtensor_host_ms=sharded_ms - plain_ms)
+        if fa_launches != cfg.num_layers or routes["wgmma"] != fa_launches:
+            failures.append(f"prefill: flash_attention launches {routes}, "
+                            f"want {cfg.num_layers} on wgmma")
+        if not pre["logits_bit_equal"]:
+            failures.append(f"prefill logits differ from the unsharded "
+                            f"step: {pre}")
+        del got, want
+        # (b) decode
+        states = [tf.init_decode_state(cfg, nb, DECODE_MAX_SEQ,
+                                       dtype=torch.bfloat16, device="cuda")
+                  for _ in range(2)]
+        specs = sh.decode_cache_specs(cfg, states[1], batch=nb,
+                                      multi_pod=False, mesh=mesh)
+        st_p, st_s = states[0], sh.shard_tree(states[1], mesh, specs)
+        da_ops.decode_attention.launches = 0
+        off, same, bit, ms_s, ms_p = [], True, True, [], []
+        tok = prompts[:, :1]
+        for t in range(n_prompt + n_new):
+            before = da_ops.decode_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg_s, st_s = serve(dparams, sh.shard_of(tok, mesh,
+                                                    P("data", None)), st_s)
+            lg_s = lg_s.full_tensor()
+            torch.cuda.synchronize()
+            ms_s.append((time.perf_counter() - t0) * 1e3)
+            if da_ops.decode_attention.launches - before != cfg.num_layers:
+                off.append((t, da_ops.decode_attention.launches - before))
+            n_launch = da_ops.decode_attention.launches
+            t0 = time.perf_counter()
+            lg_p, st_p = serve(params, tok, st_p)
+            torch.cuda.synchronize()
+            ms_p.append((time.perf_counter() - t0) * 1e3)
+            da_ops.decode_attention.launches = n_launch
+            nxt_s, nxt_p = lg_s[:, -1].argmax(-1), lg_p[:, -1].argmax(-1)
+            same &= bool(torch.equal(nxt_s, nxt_p))
+            bit &= bool(torch.equal(lg_s, lg_p))
+            tok = (prompts[:, t + 1:t + 2] if t + 1 < n_prompt
+                   else nxt_p[:, None])
+        steps = n_prompt + n_new
+        ctx["launches"]["decode_attention_sharded"] = \
+            da_ops.decode_attention.launches
+        dec = dict(steps=steps, slots=nb,
+                   decode_attention_launches=da_ops.decode_attention.launches,
+                   launches_off=off, tokens_equal=same, logits_bit_equal=bit,
+                   ms_per_step_sharded=sum(ms_s[1:]) / (steps - 1),
+                   ms_per_step_unsharded=sum(ms_p[1:]) / (steps - 1),
+                   cache_placements=[str(p) for p in
+                                     st_s.caches["kv"][0]["k"].placements])
+        if off or not same or not bit:
+            failures.append(f"decode: {dec}")
+        del states, st_p, st_s
+        torch.cuda.empty_cache()
+        # (c) the sequence-sharded layout on the kernel route
+        small = tf.init_decode_state(cfg, nb, 64, dtype=torch.bfloat16,
+                                     device="cuda")
+        seq = sh.shard_tree(small, mesh, sh.decode_cache_specs(
+            cfg, small, batch=nb, multi_pod=False, mesh=mesh,
+            kv_seq_shard=True))
+        try:
+            serve(dparams, sh.shard_of(prompts[:, :1], mesh,
+                                       P("data", None)), seq)
+            refusal = None
+            failures.append("the kernel route decoded a sequence-sharded "
+                            "cache")
+        except ValueError as exc:
+            refusal = str(exc)
+        del dparams, small, seq
+    del ctx["llm"], params
+    torch.cuda.empty_cache()
+    emit(phase="sharded", ok=not failures, arch=cfg.name,
+         layers=cfg.num_layers, mesh=[1, 1], nvidia_smi=ctx["smi"],
+         prefill=dict(batch=b, seq=s, **pre), decode=dec,
+         kernel_refuses_sequence_sharding=refusal, failures=failures)
+    if failures:
+        raise AssertionError(f"sharded: {failures}")
+
+
+def phase_sharded_host(torch, ctx):
+    """The sharded program's dry runs, run by `start_host_work` beside the
+    card phases: `python -m repro_torch.launch.dryrun` on
+    SHARDED_DRYRUN_CLI (yi-9b x train_4k on a fake (16, 16) world) exits
+    0 with a report whose collectives are not empty, and `fl8`'s dry
+    states order their pod-axis bytes overlay > half > isolated = 0."""
+    del torch
+    cli = host_result(ctx, "dryrun_sharded")
+    path = (Path(ctx["host_work"]["tmp"]) / "sharded"
+            / "h100x256__yi-9b__train_4k.json")
+    rep = json.loads(path.read_text()) if path.exists() else {}
+    states = {r["state"]: r for r in host_result(ctx, "fl8_dry")}
+    pod = {k: r["pod_permute_bytes"] for k, r in states.items()}
+    failures = []
+    if cli["rc"] or rep.get("status") != "ok" or \
+            not rep["collectives"]["total_bytes"]:
+        failures.append(f"sharded dry run: rc {cli['rc']}, "
+                        f"{rep.get('status')}, {cli['stderr_tail']}")
+    if not pod["overlay"] > pod["half"] > pod["isolated"] == 0:
+        failures.append(f"fl8 dry pod bytes {pod}")
+    emit(phase="sharded_host", ok=not failures,
+         dryrun=dict(rc=cli["rc"], seconds=cli["seconds"],
+                     mesh_shape=rep.get("mesh_shape"),
+                     collectives=rep.get("collectives"),
+                     memory=rep.get("memory"), trace_s=rep.get("trace_s")),
+         fl8_dry={k: dict(pod_permute_bytes=r["pod_permute_bytes"],
+                          shard_bytes=r["shard_bytes"],
+                          collectives=r["collectives"])
+                  for k, r in states.items()},
+         failures=failures)
+    if failures:
+        raise AssertionError(f"sharded_host: {failures}")
 
 
 def _decode_live_check(torch, ctx, cfg, kv, lens_at, *, label="layer",
@@ -5269,13 +5526,14 @@ def main() -> int:
     ctx: dict = {"launches": {}}
     phases = [phase_device, phase_build, phase_edge_aggregate, phase_run_fl,
               phase_cycle, phase_flash_attention, phase_decode_attention,
-              phase_llm_prefill, phase_llm_decode, phase_ssd_scan,
+              phase_llm_prefill, phase_llm_decode, phase_sharded,
+              phase_ssd_scan,
               phase_ssm_prefill, phase_ssm_decode, phase_hybrid_prefill,
               phase_hybrid_decode, phase_serving, phase_llm_families,
               phase_llm_train, phase_gossip_combine,
               phase_ring_gossip,
               phase_run_fl_surface, phase_fl_mesh, phase_launch_analysis,
-              phase_run_fl_models,
+              phase_sharded_host, phase_run_fl_models,
               phase_topologies,
               phase_design_loop, phase_design_search]
     walls = {}
@@ -5340,8 +5598,21 @@ def main() -> int:
              shape=pali["shape"], kernel_route=pali["route"],
              launches=ctx["launches"]["flash_attention_paligemma_3b"],
              **{k: pali[k] for k in keys}),
+        dict(_kernel_row(ctx, "flash_attention",
+                         "src/repro/kernels/flash_attention/kernel.py:104"),
+             path="sharded: yi-9b prefill on a one-rank (1, 1) DTensor "
+                  "mesh, the kernel on the rank's head shard; timed at "
+                  "FA_MAIN in phase flash_attention",
+             kernel_route="wgmma",
+             launches=ctx["launches"]["flash_attention_sharded"]),
         _kernel_row(ctx, "decode_attention",
                     "src/repro/kernels/decode_attention/kernel.py:75"),
+        dict(_kernel_row(ctx, "decode_attention",
+                         "src/repro/kernels/decode_attention/kernel.py:75"),
+             path="sharded: yi-9b decode on a one-rank (1, 1) DTensor mesh, "
+                  "the caches DTensors; timed at the yi-9b decode shape in "
+                  "phase llm_decode",
+             launches=ctx["launches"]["decode_attention_sharded"]),
         *[dict(_kernel_row(ctx, "decode_attention",
                            "src/repro/kernels/decode_attention/kernel.py:75"),
                **row) for row in ctx["serving_rows"]],

@@ -2,11 +2,22 @@
 fake tensors (counterpart of `repro.launch.dryrun`).
 
 The reference lowers and compiles each pair for a 256- or 512-chip TPU
-mesh and reads XLA's memory and cost analyses. The port runs on one
-H100, so its meshes are "h100" (`make_train_step`, `make_prefill_step`,
-`make_serve_step`) and "h100_fl2" (train shapes: `make_fl_train_step`
-over FL_SILOS = 2 silos stacked on one card; the other shapes as on
-"h100"). Each step runs once, eagerly, on the inputs of `launch/specs`
+mesh and reads XLA's memory and cost analyses. The port's meshes:
+
+* "h100" (`make_train_step`, `make_prefill_step`, `make_serve_step`) and
+  "h100_fl2" (train shapes: `make_fl_train_step` over FL_SILOS = 2 silos
+  stacked on one card; the other shapes as on "h100"): one card;
+* "h100x256" and "h100x512": the reference's production meshes, (16, 16)
+  ("data", "model") and (2, 16, 16) ("pod", "data", "model"), with
+  ``debug=True`` (2, 2) and (2, 2, 2). The step runs as rank 0 of a
+  `fake_world` of the mesh's size on DTensor inputs laid out by
+  `launch/sharding` (FSDP and tensor-parallel specs, `fsdp_layers`,
+  `kv_seq_shard`), built from their local shards without a collective,
+  with the reference's activation anchors (`models/shard_ctx`) in train
+  and prefill. Multi-pod train is the FL step over FL_SILOS silos with
+  the silo axis over "pod" (`param_specs(pod_stacked=True)`).
+
+Each step runs once, eagerly, on the inputs of `launch/specs`
 materialised as fake tensors (`FakeTensorMode`: shapes and types, no
 storage), so full-size configs run on any host. The impl is "chunked" by
 default, as in the reference: the port's kernels are `ctypes` calls that
@@ -32,10 +43,14 @@ Per pair the report keeps the reference's keys:
   excluded; this one is what the eager caching allocator would need on
   top of the arguments, outputs included, without its block rounding
   and fragmentation.
-* ``collectives``: zero bytes on "h100" and "h100_fl2", where every
-  silo sits on one card (the reference parses them from the HLO,
-  `hlo_analysis.py`, which has no torch counterpart). The mesh runtime's
-  shard layout has reports of its own (`dry_fl_mesh`).
+* ``collectives``: on the sharded meshes, `hlo_analysis.CollectiveCounter`'s
+  summary of the step on rank 0: operand bytes and counts per kind, and
+  bytes per mesh axis (``by_axis``). Zero on "h100" and "h100_fl2",
+  where every silo sits on one card. The mesh runtime's shard layout has
+  reports of its own (`dry_fl_mesh`).
+* On the sharded meshes every FLOP, byte and memory figure is rank 0's:
+  its local ops and the storages of its shards (the reference's
+  per-device figures).
 * ``trace_s``: seconds to build the inputs and run the step, in place of
   ``lower_s`` and ``compile_s``.
 * ``memory.generated_code_bytes`` is null and ``while_trips`` is {}:
@@ -52,18 +67,23 @@ Usage:
   python -m repro_torch.launch.dryrun --all --mesh both --jobs 6 \
       --out experiments/dryrun_torch
 
+  python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k \
+      --mesh h100x256 --layers 1 [--debug]
+
 Each op of a step is a Python call on fake tensors, so a full-depth
 train_4k pair takes minutes; --jobs traces pairs in parallel processes
-and --layers N cuts every model's depth for a quick check. The
-reference's --debug (a 4- or 8-device host mesh) has no counterpart:
-the port has no device mesh to shrink.
+and --layers N cuts every model's depth for a quick check. --debug
+shrinks the sharded meshes to (2, 2) and (2, 2, 2), the reference's CI
+meshes.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import multiprocessing
 import pathlib
 import time
@@ -73,24 +93,36 @@ from concurrent.futures import ProcessPoolExecutor
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.launch import roofline
-from repro_torch.launch.mesh import tree_map
+from repro_torch.launch import hlo_analysis, roofline
+from repro_torch.launch import sharding as shrules
+from repro_torch.launch.mesh import fake_world, make_debug_mesh, tree_map
 from repro_torch.launch.specs import (SHAPES, InputShape, batch_shape,
                                       decode_shapes, meta_leaves,
                                       params_shape, shape_applicable)
 from repro_torch.launch.steps import (make_fl_train_step, make_prefill_step,
                                       make_serve_step, make_train_step)
+from repro_torch.models import shard_ctx
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 
-FL_SILOS = 2  # "h100_fl2": two silos of the FL round on one card
-MESHES = ("h100", "h100_fl2")
+FL_SILOS = 2  # "h100_fl2" / "h100x512": two silos of the FL round
+#: one card
+CARD_MESHES = ("h100", "h100_fl2")
+#: mesh name -> (shape, debug shape, axis names), on a fake world
+SHARDED_MESHES = {
+    "h100x256": ((16, 16), (2, 2), ("data", "model")),
+    "h100x512": ((2, 16, 16), (2, 2, 2), ("pod", "data", "model")),
+}
+MESHES = CARD_MESHES + tuple(SHARDED_MESHES)
+#: --mesh names that stand for several meshes
+MESH_SETS = {"both": CARD_MESHES, "all": MESHES}
 FL_SHARDS = (1, 2, 4, 8)  # the mesh runtime's layouts `run_all` prices
 
 
@@ -127,10 +159,12 @@ class _StepMeter(TorchDispatchMode):
 
     def hold(self, tensors) -> None:
         for t in tensors:
-            self._add(t.untyped_storage())
+            self._add(_local(t).untyped_storage())
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # meter rank 0's local ops instead
         out = func(*args, **kwargs)
         if func.namespace == "prim":
             return out
@@ -153,11 +187,16 @@ class _StepMeter(TorchDispatchMode):
         return out
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def storage_bytes(tensors) -> int:
-    """Bytes of the distinct storages under ``tensors``."""
+    """Bytes of the distinct storages under ``tensors`` (a DTensor's: its
+    local shard's)."""
     seen = {}
     for t in tensors:
-        st = t.untyped_storage()
+        st = _local(t).untyped_storage()
         seen[id(st)] = st.nbytes()
     return sum(seen.values())
 
@@ -171,9 +210,10 @@ def _fake(tree):
     return torch.empty(tree.shape, dtype=tree.dtype, device="cpu")
 
 
-def measure(step, make_args) -> dict:
+def measure(step, make_args, counter=None) -> dict:
     """Run ``step(*make_args())`` once on fake tensors: FLOPs, bytes
-    accessed, argument / output / peak / temp bytes and seconds."""
+    accessed, argument / output / peak / temp bytes and seconds; with a
+    `hlo_analysis.CollectiveCounter`, the step's collectives too."""
     t0 = time.perf_counter()
     # real tensors made when the step was built (the FL consensus
     # matrix) are faked where they meet the inputs
@@ -182,28 +222,54 @@ def measure(step, make_args) -> dict:
         arg_tensors = meta_leaves(list(args))
         meter = _StepMeter()
         meter.hold(arg_tensors)
-        with meter:
+        with meter, (counter or contextlib.nullcontext()):
             out = step(*args)
         argument_bytes = storage_bytes(arg_tensors)
         output_bytes = storage_bytes(meta_leaves(out))
         del out
-    return dict(
+    rep = dict(
         trace_s=time.perf_counter() - t0,
         memory=dict(argument_bytes=argument_bytes, output_bytes=output_bytes,
                     temp_bytes=meter.peak - argument_bytes,
                     peak_bytes=meter.peak, generated_code_bytes=None),
         cost=dict(flops=float(meter.flops),
                   bytes_accessed=float(meter.accessed)))
+    if counter is not None:
+        rep["collectives"] = counter.stats().summary()
+    return rep
 
 
-def _build(cfg: ModelConfig, shape: InputShape, mesh: str, *, gossip: bool,
+ANCHORS = dict(act=shrules.P("data", None, None),
+               channels=shrules.P("data", None, "model"),
+               heads=shrules.P("data", None, "model", None))
+
+
+def _build(cfg: ModelConfig, shape: InputShape, *, fl: bool, gossip: bool,
            impl: str, remat: bool, microbatch: int, gossip_dtype: str,
-           grad_dtype: str | None):
-    """(step, make_args) of one pair; make_args runs under the fake mode."""
+           grad_dtype: str | None, mesh=None, fsdp_layers: bool = True,
+           kv_seq_shard: bool = False):
+    """(step, make_args) of one pair; make_args runs under the fake mode.
+    ``fl``: a train shape takes the FL step over FL_SILOS stacked silos.
+    With a `DeviceMesh` the inputs are DTensors under the specs of
+    `launch/sharding`, made from this rank's shards with no collective;
+    without, plain fake tensors."""
+    multi_pod = mesh is not None and "pod" in mesh.mesh_dim_names
+
+    def specs(rule, *args, **kw):
+        return None if mesh is None else rule(*args, **kw)
+
+    def inputs(tree, spec_tree):
+        if mesh is None:
+            return _fake(tree)
+        return shrules.spec_map(lambda meta, spec: shrules.sharded(
+            torch.empty(shrules.local_shape(meta.shape, mesh, spec),
+                        dtype=meta.dtype), mesh, spec, tuple(meta.shape)),
+            tree, spec_tree)
+
     pshape = params_shape(cfg)
     if shape.mode == "train":
         opt = adamw(1e-4)
-        if mesh == "h100_fl2":
+        if fl:
             pshape = tree_map(lambda x: torch.empty(
                 (FL_SILOS,) + tuple(x.shape), dtype=x.dtype, device="meta"),
                 pshape)
@@ -216,34 +282,78 @@ def _build(cfg: ModelConfig, shape: InputShape, mesh: str, *, gossip: bool,
             step = make_train_step(cfg, opt, impl=impl, remat=remat,
                                    microbatch=microbatch)
             bshape = batch_shape(cfg, shape)
+        pspec = specs(shrules.param_specs, cfg, pshape,
+                      fsdp_layers=fsdp_layers, pod_stacked=fl, mesh=mesh)
+        bspec = specs(shrules.batch_specs, "train", multi_pod=multi_pod,
+                      fl=fl, has_prefix="prefix_embeds" in bshape)
 
         def make_args():
-            params = _fake(pshape)
-            return params, opt.init(params), _fake(bshape)
+            params = inputs(pshape, pspec)
+            return params, opt.init(params), inputs(bshape, bspec)
 
         return step, make_args
+    pspec = specs(shrules.param_specs, cfg, pshape, fsdp_layers=fsdp_layers,
+                  mesh=mesh)
     if shape.mode == "prefill":
         bshape = batch_shape(cfg, shape)
         bshape.pop("labels")
+        bspec = specs(shrules.batch_specs, "prefill", multi_pod=multi_pod,
+                      fl=False, has_prefix="prefix_embeds" in bshape)
         return make_prefill_step(cfg, impl=impl), \
-            lambda: (_fake(pshape), _fake(bshape))
+            lambda: (inputs(pshape, pspec), inputs(bshape, bspec))
     tokens, state = decode_shapes(cfg, shape)
+    sspec = specs(shrules.decode_cache_specs, cfg, state,
+                  batch=shape.global_batch, multi_pod=multi_pod, mesh=mesh,
+                  kv_seq_shard=kv_seq_shard)
+    daxis = ("pod", "data") if multi_pod else "data"
+    tspec = (shrules.P(daxis, None) if shape.global_batch > 1
+             else shrules.P(None, None))
 
     def make_args():
         # the last position: the whole context is live; an int, which
         # `decode_step` reads on the host without a value from the tensors
-        st = tf.DecodeState(caches=_fake(state.caches),
+        st = tf.DecodeState(caches=inputs(state.caches,
+                                          sspec and sspec.caches),
                             position=shape.seq_len - 1)
-        return _fake(pshape), _fake(tokens), st
+        return inputs(pshape, pspec), inputs(tokens, tspec), st
 
     return make_serve_step(cfg, impl=impl), make_args
+
+
+def _measure_sharded(cfg: ModelConfig, shape: InputShape, mesh_name: str, *,
+                     debug: bool, **kw) -> dict:
+    """`measure` as rank 0 of a fake world of the mesh's size, the
+    activation anchors set for train and prefill, collectives counted."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    full, small, axes = SHARDED_MESHES[mesh_name]
+    mesh_shape = small if debug else full
+    with fake_world(math.prod(mesh_shape)):
+        mesh = make_debug_mesh(mesh_shape, axes, device_type="cpu")
+        step, make_args = _build(cfg, shape, fl="pod" in axes, mesh=mesh,
+                                 **kw)
+
+        def run(*args):
+            with implicit_replication():
+                return step(*args)
+
+        if shape.mode in ("train", "prefill"):
+            shard_ctx.set_specs(**ANCHORS, mesh=mesh)
+        try:
+            rep = measure(run, make_args,
+                          hlo_analysis.CollectiveCounter(mesh))
+        finally:
+            shard_ctx.clear()
+    rep["mesh_shape"] = list(mesh_shape)
+    return rep
 
 
 def dry_pair(arch: str | ModelConfig, shape: str | InputShape,
              mesh: str = "h100", *, gossip: bool = True,
              impl: str = "chunked", remat: bool = True, microbatch: int = 8,
              gossip_dtype: str = "float32", grad_dtype: str | None = None,
-             layers: int | None = None) -> dict:
+             layers: int | None = None, fsdp_layers: bool = True,
+             kv_seq_shard: bool = False, debug: bool = False) -> dict:
     """Trace one (arch, shape, mesh) on fake tensors (the reference's
     `lower_pair`). ``arch`` and ``shape`` are names or a config and an
     `InputShape`. microbatch=8 is the reference's baseline for train
@@ -251,7 +361,8 @@ def dry_pair(arch: str | ModelConfig, shape: str | InputShape,
     ``layers`` cuts the model's depth (the report says so under
     "layers"): each layer costs the host about a second of eager Python
     per microbatch at 4k tokens, so a full-depth train_4k pair takes
-    minutes."""
+    minutes. ``fsdp_layers``, ``kv_seq_shard`` and ``debug`` (the (2, 2)
+    and (2, 2, 2) meshes) act on the sharded meshes only."""
     if mesh not in MESHES:
         raise ValueError(f"unknown mesh {mesh!r}; have {MESHES}")
     cfg = get_config(arch) if isinstance(arch, str) else arch
@@ -268,15 +379,24 @@ def dry_pair(arch: str | ModelConfig, shape: str | InputShape,
     if not ok:
         report.update(status="skipped", reason=why)
         return report
+    microbatch = microbatch if shape.mode == "train" else 1
     try:
-        step, make_args = _build(
-            cfg, shape, mesh, gossip=gossip, impl=impl, remat=remat,
-            microbatch=microbatch if shape.mode == "train" else 1,
-            gossip_dtype=gossip_dtype, grad_dtype=grad_dtype)
-        report.update(status="ok", **measure(step, make_args),
-                      collectives={"total_bytes": 0, "by_kind": {},
-                                   "counts": {}},
-                      while_trips={})
+        if mesh in SHARDED_MESHES:
+            report.update(status="ok", **_measure_sharded(
+                cfg, shape, mesh, debug=debug, gossip=gossip, impl=impl,
+                remat=remat, microbatch=microbatch,
+                gossip_dtype=gossip_dtype, grad_dtype=grad_dtype,
+                fsdp_layers=fsdp_layers, kv_seq_shard=kv_seq_shard),
+                while_trips=hlo_analysis.while_trip_counts())
+        else:
+            step, make_args = _build(
+                cfg, shape, fl=mesh == "h100_fl2", gossip=gossip, impl=impl,
+                remat=remat, microbatch=microbatch,
+                gossip_dtype=gossip_dtype, grad_dtype=grad_dtype)
+            report.update(status="ok", **measure(step, make_args),
+                          collectives={"total_bytes": 0, "by_kind": {},
+                                       "counts": {}},
+                          while_trips={})
     except Exception as e:  # noqa: BLE001 -- a pair's failure is its report
         report.update(status="error", error=f"{type(e).__name__}: {e}",
                       trace=traceback.format_exc()[-3000:])
@@ -365,15 +485,15 @@ def _pair_to_file(arch: str, shape: str, mesh: str, path: pathlib.Path,
 
 def run_all(mesh_kind: str, out_dir: pathlib.Path, archs=None, shapes=None,
             fl_shards=FL_SHARDS, jobs: int = 1, **kw) -> list[dict]:
-    """Every arch x shape on the meshes of ``mesh_kind`` ("h100",
-    "h100_fl2" or "both") into ``out_dir`` (a pair whose report exists is
+    """Every arch x shape on the meshes of ``mesh_kind`` (a mesh or a key
+    of MESH_SETS) into ``out_dir`` (a pair whose report exists is
     read back), in ``jobs`` processes (each pair is one single-threaded
     eager trace), then every arch's mesh-runtime layouts at ``fl_shards``
     into ``out_dir/fl_mesh``. ``kw`` goes to `dry_pair`."""
     out_dir.mkdir(parents=True, exist_ok=True)
     archs = archs or ARCH_IDS
     shapes = shapes or list(SHAPES)
-    meshes = MESHES if mesh_kind == "both" else (mesh_kind,)
+    meshes = MESH_SETS.get(mesh_kind, (mesh_kind,))
     results, todo = [], []
     for mesh in meshes:
         for arch in archs:
@@ -412,8 +532,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", help="architecture id/alias")
     ap.add_argument("--shape", choices=list(SHAPES))
-    ap.add_argument("--mesh", choices=[*MESHES, "both"], default="h100")
+    ap.add_argument("--mesh", choices=[*MESHES, *MESH_SETS],
+                    default="h100",
+                    help="a mesh, or both (the two card meshes), sharded "
+                         "(h100x256 and h100x512) or all")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--debug", action="store_true",
+                    help="the sharded meshes at (2, 2) and (2, 2, 2)")
     ap.add_argument("--no-gossip", action="store_true",
                     help="trace a weak (isolated) FL round instead")
     ap.add_argument("--layers", type=int,
@@ -425,15 +550,17 @@ def main(argv=None) -> int:
 
     out = pathlib.Path(args.out)
     if args.all:
-        reps = run_all(args.mesh, out, jobs=args.jobs, layers=args.layers)
+        reps = run_all(args.mesh, out, jobs=args.jobs, layers=args.layers,
+                       debug=args.debug)
         return int(any(r["status"] == "error" for r in reps))
     if not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
     out.mkdir(parents=True, exist_ok=True)
     failed = False
-    for mesh in (MESHES if args.mesh == "both" else (args.mesh,)):
+    for mesh in MESH_SETS.get(args.mesh, (args.mesh,)):
         rep = dry_pair(args.arch, args.shape, mesh,
-                       gossip=not args.no_gossip, layers=args.layers)
+                       gossip=not args.no_gossip, layers=args.layers,
+                       debug=args.debug)
         (out / f"{mesh}__{args.arch}__{args.shape}.json").write_text(
             json.dumps(rep, indent=1))
         print(json.dumps({k: v for k, v in rep.items() if k != "trace"},

@@ -12,11 +12,30 @@ CUDA `gossip_combine`, once per multigraph state type:
   "isolated" -- every edge weak (nothing crosses the silo axis; stale
                 buffers only)
 
-The reference lowers these rounds on 512 fake host devices and reads the
-collective-permute bytes from the HLO; here they run, and each state
-reports ms per round, the bytes that crossed the silo axis per round,
-the `gossip_combine` launches and the peak device memory. `main` prints
-one JSON line per state and writes nothing.
+Two paths:
+
+* the run path (`run_state`): the rounds run on `StackedSilos(8)`, and
+  each state reports ms per round, the bytes that crossed the silo axis
+  per round (``bytes_per_round``, the axis's `bytes_moved`), the
+  `gossip_combine` launches and the peak device memory;
+* the dry path (`dry_state`), the reference's `lower_state`: rank 0 of a
+  fake (8, 8, 8) ("pod", "data", "model") world holds its shard of one
+  silo's replica (`param_specs(pod_stacked=True)` on that mesh) and runs
+  the round over the pod axis (`GroupSilos` on the pod group: each rank
+  permutes its own shard, "data" and "model" stay as they lie), with
+  `hlo_analysis.CollectiveCounter` on. It reports ``collectives`` and
+  ``pod_permute_bytes`` (the collective-permute bytes over "pod"), and
+  ``shard_bytes``, rank 0's share of one replica.
+
+The two agree under this conversion, which `tests/test_torch_fl8_dry.py`
+holds exactly: a round sends each active direction's replica once, so
+
+    pod_permute_bytes / shard_bytes
+        == bytes_per_round / (N_SILOS * replica_bytes)
+        == the number of active directions (2, 1, 0).
+
+`main` prints one JSON line per state and writes nothing; ``--dry``
+takes the dry path (no card needed).
 """
 
 from __future__ import annotations
@@ -26,17 +45,24 @@ import json
 import time
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.fl.gossip import (gossip_ring_ppermute, init_ring_buffers,
                                    ring_coefficients)
 from repro_torch.kernels.gossip_combine import ops
-from repro_torch.launch.mesh import StackedSilos, tree_bytes
+from repro_torch.launch import hlo_analysis
+from repro_torch.launch import sharding as shrules
+from repro_torch.launch.mesh import (GroupSilos, StackedSilos, fake_world,
+                                     make_debug_mesh, tree_bytes, tree_map)
+from repro_torch.launch.specs import params_shape
 from repro_torch.models import transformer as tf
 
 N_SILOS = 8
 ARCH = "mamba2-370m"
+#: the dry path's mesh: one pod per silo
+DRY_MESH = ((N_SILOS, 8, 8), ("pod", "data", "model"))
 #: (name, active_left, active_right) per multigraph state type.
 STATES = (("overlay", True, True), ("half", True, False),
           ("isolated", False, False))
@@ -74,7 +100,7 @@ def run_state(name: str, arch: str, active_left: bool, active_right: bool,
     from fresh weights; the report of the timed rounds: ms per round,
     silo-axis bytes, kernel launches and peak memory."""
     device = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     params = init_silos(cfg, axis, device)
     buffers = init_ring_buffers(params)
     step = build_step(cfg, active_left, active_right, axis)
@@ -106,10 +132,56 @@ def run_state(name: str, arch: str, active_left: bool, active_right: bool,
                               if cuda else None))
 
 
+def dry_state(name: str, arch, active_left: bool, active_right: bool) -> dict:
+    """One gossip round of a state as rank 0 of a fake DRY_MESH world
+    (the reference's `lower_state`): its collectives, the pod axis's
+    collective-permute bytes and rank 0's shard bytes of one replica.
+    ``arch``: a name or a config."""
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    shape, axes = DRY_MESH
+    stacked = tree_map(lambda x: torch.empty(
+        (N_SILOS,) + tuple(x.shape), dtype=x.dtype, device="meta"),
+        params_shape(cfg))
+    rep = {"variant": f"D_{name}", "arch": cfg.name, "state": name,
+           "active": [active_left, active_right], "mesh": list(shape)}
+    t0 = time.perf_counter()
+    with fake_world(N_SILOS * 64):
+        mesh = make_debug_mesh(shape, axes, device_type="cpu")
+        specs = shrules.param_specs(cfg, stacked, pod_stacked=True, mesh=mesh)
+        axis = GroupSilos(mesh.get_group("pod"))
+        step = build_step(cfg, active_left, active_right, axis)
+        counter = hlo_analysis.CollectiveCounter(mesh)
+        # the ring coefficients, made with the step, are real tensors
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            def shard(meta, spec):  # rank 0's shard of its pod's silo
+                local = shrules.local_shape(meta.shape, mesh, spec)
+                return torch.empty(local[1:], dtype=meta.dtype)
+
+            params = shrules.spec_map(shard, stacked, specs)
+            bufs = {"left": shrules.spec_map(shard, stacked, specs),
+                    "right": shrules.spec_map(shard, stacked, specs)}
+            with counter:
+                step(params, bufs)
+            shard_bytes = tree_bytes(params)
+    stats = counter.stats()
+    rep.update(status="ok", trace_s=time.perf_counter() - t0,
+               collectives=stats.summary(), shard_bytes=shard_bytes,
+               pod_permute_bytes=stats.bytes_by_axis.get("pod", 0)
+               if stats.bytes_by_kind.get("collective-permute") else 0)
+    return rep
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--dry", action="store_true",
+                    help="the reference's lowering: each state's collectives "
+                         "on a fake (8, 8, 8) world, no card")
     args = ap.parse_args(argv)
+    if args.dry:
+        for name, left, right in STATES:
+            print(json.dumps(dry_state(name, ARCH, left, right)), flush=True)
+        return
     device = resolve_device()
     axis = StackedSilos(N_SILOS)
     for name, left, right in STATES:

@@ -28,12 +28,16 @@ Trees are nested dicts of tensors.
 
 The mesh runtime's shard axis (`StackedShards`, `GroupShards`, chosen by
 `shard_axis`) and the silo-to-shard block mapping (`SiloAssignment`,
-copied from the reference) are at the end of the module.
+copied from the reference) come next, and the production device meshes
+of the sharded LLM program (`make_production_mesh`, `make_debug_mesh`,
+`fake_world`) are at the end of the module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -378,3 +382,71 @@ def shard_axis(mesh, device=None):
         return StackedShards(int(mesh), device)
     raise ValueError(f"mesh must be an int, 'auto' or a shard axis, got "
                      f"{mesh!r}")
+
+
+# ---------------------------------------------------------------------------
+# Production meshes of the sharded LLM program (counterpart of the
+# reference's `make_production_mesh` / `make_debug_mesh`)
+# ---------------------------------------------------------------------------
+#
+# Single pod: 16 x 16 = 256 ranks, axes ("data", "model"). Multi pod:
+# 2 x 16 x 16 = 512 ranks, axes ("pod", "data", "model"); the "pod" axis is
+# the FL silo axis, each pod one cross-silo participant holding a full model
+# replica. A mesh is a `DeviceMesh` over the default process group, which
+# must hold exactly the mesh's ranks: real processes (gloo on the CPU, NCCL
+# on cards), or `fake_world(n)`, one process that traces rank 0 of an
+# n-rank program whose collectives move nothing (the dry run's counterpart
+# of the reference's 512 placeholder host devices).
+
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_debug_mesh(shape=(2, 2, 2), axes=("pod", "data", "model"), *,
+                    device_type: str | None = None):
+    """A `DeviceMesh` of ``shape`` with dim names ``axes`` over the
+    default process group, whose world size must be the mesh's size. It
+    lies on the card unless ``device_type`` says otherwise (``"cpu"``:
+    gloo ranks or a fake world)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.device import resolve_device
+
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(f"mesh {tuple(shape)} needs a process group of "
+                           f"{n} ranks (or `fake_world({n})`); none is "
+                           f"initialised")
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"mesh {tuple(shape)} needs {n} ranks, the "
+                           f"process group has {dist.get_world_size()}")
+    return init_device_mesh(resolve_device(device_type).type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
+    """The reference's production mesh: (16, 16) ("data", "model"), or
+    (2, 16, 16) ("pod", "data", "model") with ``multi_pod``."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    return make_debug_mesh(shape, axes, device_type=device_type)
+
+
+@contextlib.contextmanager
+def fake_world(size: int):
+    """A ``"fake"`` process group of ``size`` ranks in this one process
+    (rank 0), destroyed on exit: collectives return at once and move
+    nothing, so a dry run traces rank 0 of a ``size``-rank program. It
+    refuses to start over an initialised group."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialised in this process")
+    # internal API that registers the "fake" backend; imported here only
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -3,15 +3,18 @@ pairs, read their roofline terms, and log hypothesis -> change -> result
 to experiments/perf_torch/ (counterpart of `repro.launch.perf`).
 
 Pairs (the reference's, with its variant names and hypotheses):
-  A granite_moe_1b x train_4k (h100)     -- its collective/compute ratio
-  B gemma3_27b x decode_32k  (h100)      -- its collective-bound decode
-  C qwen2-7b x train_4k      (h100_fl2)  -- the paper's technique (FL gossip)
+  A granite_moe_1b x train_4k  -- its collective/compute ratio
+  B gemma3_27b x decode_32k    -- its collective-bound decode
+  C qwen2-7b x train_4k, FL    -- the paper's technique (FL gossip)
 
-One card has no FSDP axis and no KV-sequence axis: the variants that only
-change sharding (fsdp_layers=False, kv_seq_shard=True: A2, A3, B1, B2,
-C3, C4) are written with status "skipped" and that reason. The others
-run through `dryrun.dry_pair`: A0 / A1 (microbatch 8 / 1), B0, C0 / C1
-(gossip on / off) and C2 (gossip in bf16).
+Every variant runs through `dryrun.dry_pair`. A0 / A1 (microbatch 8 / 1)
+and B0 run on "h100", C0 / C1 (gossip on / off) and C2 (gossip in bf16)
+on "h100_fl2": one card. The variants that change sharding run on the
+pair's sharded mesh, the reference's ("h100x256" for A and B,
+"h100x512" for C), beside that pair's baseline on the same mesh (A0_x256,
+B0_x256, C0_x512), so that each comparison stays within one mesh: A2 /
+A3 (no FSDP, microbatch 8 / 1), B1 (no FSDP) and B2 (no FSDP, KV cache
+sharded over its sequence), C3 / C4 (no FSDP, grads in fp32 / bf16).
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.perf [--pair A|B|C|all]
        [--layers N]
@@ -28,26 +31,17 @@ from repro_torch.launch.roofline import roofline_row
 
 OUT = pathlib.Path("experiments/perf_torch")
 
-NO_SHARD_AXIS = ("one H100 has no device mesh: the variant only changes "
-                 "how GSPMD shards weights or caches across chips, which "
-                 "the port does not do")
-
 
 def run_variant(name: str, arch: str, shape: str, *, mesh: str,
-                hypothesis: str, skip: str | None = None,
-                out: pathlib.Path = OUT, **kw) -> dict:
-    """Dry-run one variant (or record why it is skipped) into
-    ``out/<name>.json``; a variant whose file exists is read back."""
+                hypothesis: str, out: pathlib.Path = OUT, **kw) -> dict:
+    """Dry-run one variant into ``out/<name>.json``; a variant whose file
+    exists is read back."""
     out.mkdir(parents=True, exist_ok=True)
     path = out / f"{name}.json"
     if path.exists():
         print(f"[perf] {name}: cached")
         return json.loads(path.read_text())
-    if skip:
-        rep = {"arch": arch, "shape": shape, "mesh": mesh,
-               "status": "skipped", "reason": skip}
-    else:
-        rep = dry_pair(arch, shape, mesh, **kw)
+    rep = dry_pair(arch, shape, mesh, **kw)
     rep["variant"] = name
     rep["hypothesis"] = hypothesis
     if rep["status"] == "ok" and "layers" not in kw:
@@ -60,13 +54,15 @@ def run_variant(name: str, arch: str, shape: str, *, mesh: str,
     c = rep.get("collectives", {}).get("total_bytes", 0)
     t = rep.get("memory", {}).get("temp_bytes", 0)
     print(f"[perf] {name}: {rep['status']} coll={c:.3g}B temp={t:.3g}B "
-          f"roofline={rep.get('roofline', rep.get('reason'))}")
+          f"roofline={rep.get('roofline', rep.get('reason'))}"
+          + (f" error={rep['error']}" if "error" in rep else ""))
     return rep
 
 
 def pair_a(**kw):
     """granite_moe_1b x train_4k: drive the collective term down."""
     base = dict(arch="granite_moe_1b", shape="train_4k", mesh="h100", **kw)
+    sharded = dict(base, mesh="h100x256")
     run_variant(
         "A0_base", hypothesis="baseline: microbatch=8 + FSDP", **base)
     run_variant(
@@ -77,31 +73,38 @@ def pair_a(**kw):
                     "equal compute"),
         microbatch=1, **base)
     run_variant(
+        "A0_base_x256", hypothesis="baseline on the sharded mesh: "
+        "microbatch=8 + FSDP", **sharded)
+    run_variant(
         "A2_noFSDP",
         hypothesis=("params are only 2.7GB bf16 (170MB/dev TP-sharded): "
                     "dropping FSDP removes per-use weight gathers "
                     "entirely; grads sync via one all-reduce instead — "
                     "predicted large collective cut, small memory rise"),
-        skip=NO_SHARD_AXIS, **base)
+        fsdp_layers=False, **sharded)
     run_variant(
         "A3_noFSDP_mb1",
         hypothesis="combine A1+A2: the collective floor for this pair",
-        skip=NO_SHARD_AXIS, **base)
+        fsdp_layers=False, microbatch=1, **sharded)
 
 
 def pair_b(**kw):
     """gemma3_27b x decode_32k: serving latency (collective-bound)."""
     base = dict(arch="gemma3_27b", shape="decode_32k", mesh="h100", **kw)
+    sharded = dict(base, mesh="h100x256")
     run_variant(
         "B0_base", hypothesis="baseline: FSDP-sharded weights at decode",
         **base)
+    run_variant(
+        "B0_base_x256", hypothesis="baseline on the sharded mesh: "
+        "FSDP-sharded weights at decode", **sharded)
     run_variant(
         "B2_kv_seq_shard",
         hypothesis=("REFUTATION TEST: sequence-sharding the KV cache "
                     "(flash-decoding layout) instead of head-sharding "
                     "should LOSE for gemma3 (kv=16 divides the axis): "
                     "it adds a partial-softmax psum per layer per step"),
-        skip=NO_SHARD_AXIS, **base)
+        fsdp_layers=False, kv_seq_shard=True, **sharded)
     run_variant(
         "B1_tp_resident",
         hypothesis=("decode is one token: FSDP makes every step all-gather "
@@ -109,15 +112,19 @@ def pair_b(**kw):
                     "TP-resident (fsdp off) — predicted collective "
                     "collapse to activation reduces only, memory rise "
                     "to ~3.4GB/dev weights (fits)"),
-        skip=NO_SHARD_AXIS, **base)
+        fsdp_layers=False, **sharded)
 
 
 def pair_c(**kw):
     """qwen2-7b x train_4k on the FL round: the paper's gossip itself."""
     base = dict(arch="qwen2_7b", shape="train_4k", mesh="h100_fl2", **kw)
+    sharded = dict(base, mesh="h100x512")
     run_variant(
         "C0_base_strong", hypothesis="baseline: dense f32 gossip, strong round",
         **base)
+    run_variant(
+        "C0_base_strong_x512", hypothesis="baseline on the sharded mesh: "
+        "dense f32 gossip, strong round", **sharded)
     run_variant(
         "C1_weak_round",
         hypothesis=("a weak (isolated) multigraph round runs NO cross-pod "
@@ -131,14 +138,14 @@ def pair_c(**kw):
                     "bf16 = 0.95GB/dev) should cut total collective "
                     "bytes several-fold; grads sync via f32 all-reduce "
                     "instead"),
-        skip=NO_SHARD_AXIS, **base)
+        fsdp_layers=False, **sharded)
     run_variant(
         "C4_noFSDP_bf16grads",
         hypothesis=("on top of C3, syncing gradients in bf16 instead of "
                     "f32 should halve the remaining data-axis grad "
                     "all-reduce bytes (stochastic-rounding-free bf16 "
                     "grad sync is standard practice at this scale)"),
-        skip=NO_SHARD_AXIS, **base)
+        fsdp_layers=False, grad_dtype="bfloat16", **sharded)
     run_variant(
         "C2_gossip_bf16",
         hypothesis=("baseline einsum upcasts params to f32 BEFORE the "

@@ -14,9 +14,14 @@ dual-form terms) and a coarse, documented HBM byte model. The dry run
 Two sets of rates: the reference's v5e constants (`PEAK_FLOPS`,
 `HBM_BW`, `LINK_BW`) price its "single" and "multi" meshes, so that a
 reference report gives the reference's row; the H100 SXM data sheet's
-(`H100_*`) price the port's meshes, "h100" (one card) and "h100_fl2"
-(the two-silo FL round on one card). `CARD_RATES` is the table of
-cards that `chip_smoke.py` reads for its bounds.
+(`H100_*`) price the port's meshes: "h100" (one card), "h100_fl2" (the
+two-silo FL round on one card) and the sharded program's "h100x256" and
+"h100x512" (the reference's (16, 16) and (2, 16, 16) meshes of H100s,
+priced per card, its collective bytes over `H100_NVLINK_BW`: the rate
+of one card's NVLink, an upper bound for a mesh that spans nodes, whose
+cross-node links are slower). A report's ``mesh_shape`` (a ``--debug``
+dry run's (2, 2) or (2, 2, 2)) sets its number of chips. `CARD_RATES`
+is the table of cards that `chip_smoke.py` reads for its bounds.
 
 MODEL_FLOPS = 6*N*D (dense) or 6*N_active*D (MoE); the ratio
 MODEL_FLOPS / FLOPs_total exposes remat, attention and padding
@@ -53,9 +58,10 @@ H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
 H100_HBM_BW = 3.35e12      # bytes/s
 H100_NVLINK_BW = 900e9     # bytes/s per GPU, all links together
 
-CHIPS = {"single": 256, "multi": 512, "h100": 1, "h100_fl2": 1}
+CHIPS = {"single": 256, "multi": 512, "h100": 1, "h100_fl2": 1,
+         "h100x256": 256, "h100x512": 512}
 #: meshes priced with the H100's rates; the others with the v5e's
-H100_MESHES = ("h100", "h100_fl2")
+H100_MESHES = ("h100", "h100_fl2", "h100x256", "h100x512")
 
 #: Data-sheet rates of the cards the port may meet, matched by substring
 #: of `torch.cuda.get_device_name` in this order: (name, HBM bytes/s,
@@ -439,7 +445,8 @@ def roofline_row(report: dict) -> RooflineRow:
     if report["status"] != "ok":
         row.note = report.get("reason", report.get("error", ""))[:200]
         return row
-    chips = CHIPS[mesh]
+    chips = (int(np.prod(report["mesh_shape"])) if "mesh_shape" in report
+             else CHIPS[mesh])
     peak, hbm, link = mesh_rates(mesh)
     fl = analytic_flops(cfg, shape)
     by = analytic_bytes(cfg, shape)

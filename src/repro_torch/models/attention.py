@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from repro_torch.models import shard_ctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, _dense_init, apply_rope
 
@@ -54,9 +55,13 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
-            k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+    q = shard_ctx.constrain_heads(
+        shard_ctx.split_last(q, (cfg.num_heads, cfg.head_dim)))
+    k = shard_ctx.constrain_heads(
+        shard_ctx.split_last(k, (cfg.num_kv_heads, cfg.head_dim)))
+    v = shard_ctx.constrain_heads(
+        shard_ctx.split_last(v, (cfg.num_kv_heads, cfg.head_dim)))
+    return q, k, v
 
 
 def build_mask(seq: int, *, window: int = 0, prefix: int = 0,
@@ -136,16 +141,87 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     pos = torch.arange(s, device=x.device)[None, :]
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    out = attend(q, k, v, window=window, prefix=prefix, impl=impl)
+    return shard_ctx.merge_last(out) @ p["wo"]
+
+
+def attend(q, k, v, *, window: int = 0, prefix: int = 0,
+           impl: str = "reference") -> torch.Tensor:
+    """The attention core through ``impl``: q (B,S,Hq,hd), k/v
+    (B,S,Hkv,hd) -> (B,S,Hq,hd). DTensors run on each rank's head shard
+    (`head_local`)."""
+    if shard_ctx.is_dtensor(q):
+        return head_local(lambda a, b_, c: attend(
+            a, b_, c, window=window, prefix=prefix, impl=impl), q, k, v)
     if impl == "kernel":
         from repro_torch.kernels.flash_attention import ops as fa_ops
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
-                                     prefix=prefix)
-    elif impl == "chunked":
-        out = chunked_attention(q, k, v, window=window, prefix=prefix)
-    else:
-        mask = build_mask(s, window=window, prefix=prefix, device=x.device)
-        out = reference_attention(q, k, v, mask)
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+        return fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                      prefix=prefix)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, window=window, prefix=prefix)
+    mask = build_mask(q.shape[1], window=window, prefix=prefix,
+                      device=q.device)
+    return reference_attention(q, k, v, mask)
+
+
+def _head_placements(q, k):
+    """(q's, k/v's) placements for `head_local`: q heads (dim 2) over the
+    mesh dim named "model", and k/v heads too where Hkv divides it
+    (replicated otherwise); on every other mesh dim the batch (dim 0)
+    stays sharded where q has it so, else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    qpl, kvpl = [], []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name == "model":
+            qpl.append(Shard(2))
+            kvpl.append(Shard(2) if k.shape[2] % mesh.size(i) == 0
+                        else Replicate())
+        else:
+            qpl.append(shard_ctx.batch_or_replicate(q, i))
+            kvpl.append(qpl[-1])
+    return tuple(qpl), tuple(kvpl)
+
+
+def kv_heads_for(q0: int, nq: int, hq: int, hkv: int) -> torch.Tensor | slice:
+    """The KV heads that q heads [q0, q0 + nq) read, as a slice when they
+    keep the GQA layout (each contiguous run of q heads on one KV head),
+    else as an index per q head (a group of 1)."""
+    g = hq // hkv
+    lo, hi = q0 // g, (q0 + nq - 1) // g + 1
+    if nq % (hi - lo) == 0 and all(
+            (q0 + i) // g - lo == i // (nq // (hi - lo)) for i in range(nq)):
+        return slice(lo, hi)
+    return torch.tensor([(q0 + i) // g for i in range(nq)])
+
+
+def head_local(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's head shard of DTensors q, k, v (the
+    attention kernels' `local_map`): q's heads are split over "model";
+    k/v's too where Hkv divides the axis, else each rank reads the KV
+    heads of its own q heads from a replicated k/v. Returns the (B, S,
+    Hq, hd) DTensor, heads sharded as q's."""
+    qpl, kvpl = _head_placements(q, k)
+    hq, hkv = q.shape[2], k.shape[2]
+    size, off = shard_ctx.local_box(tuple(q.shape), q.device_mesh, qpl)
+    kv_size, _ = shard_ctx.local_box(tuple(k.shape), q.device_mesh, kvpl)
+    sel = slice(None)
+    if size[2] and size[2] != hq and kv_size[2] == hkv:
+        sel = kv_heads_for(off[2], size[2], hq, hkv)
+
+    def local(ql, kl, vl):
+        if not ql.shape[2]:
+            return torch.zeros_like(ql)
+        if isinstance(sel, torch.Tensor):
+            kl = kl.index_select(2, sel.to(kl.device))
+            vl = vl.index_select(2, sel.to(vl.device))
+        elif sel != slice(None):
+            kl, vl = kl[:, :, sel], vl[:, :, sel]
+        return fn(ql, kl, vl)
+
+    return shard_ctx.run_local(local, (q, k, v), (qpl, kvpl, kvpl), qpl,
+                               tuple(q.shape))
 
 
 # ---------------------------------------------------------------------------

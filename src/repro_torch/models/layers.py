@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shard_ctx
+
 Params = dict
 
 
@@ -95,7 +97,8 @@ def _act(act: str):
 
 
 def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    h = _act(act)(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = _act(act)(shard_ctx.constrain_channels(x @ p["w_gate"])) * \
+        shard_ctx.constrain_channels(x @ p["w_up"])
     return h @ p["w_down"]
 
 
@@ -115,13 +118,19 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """Rows of the token table. A DTensor table split over its vocabulary
+    is looked up on each rank's own rows (`shard_ctx.row_lookup`), not
+    gathered."""
+    tok = shard_ctx.unshard(p["tok"])
+    if shard_ctx.is_dtensor(tok):
+        return shard_ctx.row_lookup(tok, tokens)
+    return tok[tokens]
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in p:
-        return x @ p["unembed"]
-    return x @ p["tok"].T.to(x.dtype)
+        return x @ shard_ctx.unshard(p["unembed"])
+    return x @ shard_ctx.unshard(p["tok"]).T.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -129,13 +138,30 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def logsumexp_last(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim; DTensor logits split over the
+    vocabulary reduce their max and sum over those ranks instead of
+    being gathered."""
+    if shard_ctx.is_dtensor(logits):
+        return shard_ctx.last_dim_logsumexp(logits)
+    return torch.logsumexp(logits, dim=-1)
+
+
+def label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., labels]: (..., V), (...) -> (...). DTensor logits
+    split over the vocabulary gather on each rank's own slice of it,
+    zero where the label lies elsewhere, and sum over those ranks (the
+    vocab-parallel gather)."""
+    if shard_ctx.is_dtensor(logits):
+        return shard_ctx.last_dim_gather(logits, labels.long())
+    return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token cross entropy. logits (..., V), labels (...)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - ll
+    nll = logsumexp_last(logits) - label_logits(logits, labels)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.models import shard_ctx
 from repro_torch.models.attention import check_impl
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, _dense_init
@@ -89,12 +90,42 @@ def scan_inputs(p: Params, cfg: ModelConfig, xres: torch.Tensor):
     di, ns, nh, hp = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     z, xbc, dt = _project(cfg, p, xres)
+    z = shard_ctx.constrain_channels(z)
+    dt = shard_ctx.constrain_channels(dt)
     conv_w = torch.cat([p["conv_x"], p["conv_bc"]], dim=-1)
     xbc, _ = _causal_conv(xbc, conv_w)
-    xin = xbc[..., :di].reshape(b, s, nh, hp)
+    xin = shard_ctx.constrain_heads(xbc[..., :di].reshape(b, s, nh, hp))
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     return z, (xin, dt, A, xbc[..., di:di + ns], xbc[..., di + ns:])
+
+
+def ssd(xin, dt, A, B, C, *, chunk: int, impl: str):
+    """The SSD scan through ``impl``: the CUDA kernel ("kernel") or the
+    reference's plain branch (dt and A in x's type; the chunk must divide
+    s, its `s % chunk` assertion, mamba2.py:93). DTensors run on each
+    rank's head shard: heads over "model", B and C replicated there."""
+    if shard_ctx.is_dtensor(xin):
+        return _ssd_head_local(xin, dt, A, B, C, chunk=chunk, impl=impl)
+    if impl == "kernel":
+        return ssd_ops.ssd_scan(xin, dt, A, B, C, chunk=chunk)
+    return ssd_scan_ref(xin, dt.to(xin.dtype), A.to(xin.dtype), B, C,
+                        chunk=min(chunk, xin.shape[1]))
+
+
+def _ssd_head_local(xin, dt, A, B, C, *, chunk, impl):
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = xin.device_mesh
+    heads, row, a_pl = [], [], []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        bpl = shard_ctx.batch_or_replicate(xin, i)
+        heads.append(Shard(2) if name == "model" else bpl)
+        row.append(Replicate() if name == "model" else bpl)
+        a_pl.append(Shard(0) if name == "model" else Replicate())
+    return shard_ctx.run_local(
+        lambda *a: ssd(*a, chunk=chunk, impl=impl), (xin, dt, A, B, C),
+        (heads, heads, a_pl, row, row), heads, tuple(xin.shape))
 
 
 def mamba_forward(p: Params, cfg: ModelConfig, xres: torch.Tensor, *,
@@ -103,15 +134,10 @@ def mamba_forward(p: Params, cfg: ModelConfig, xres: torch.Tensor, *,
     check_impl(impl)
     b, s, _ = xres.shape
     z, (xin, dt, A, B, C) = scan_inputs(p, cfg, xres)
-    if impl == "kernel":
-        y = ssd_ops.ssd_scan(xin, dt, A, B, C, chunk=cfg.ssm_chunk)
-    else:
-        # the reference's branch: dt and A in x's type, and the chunk
-        # must divide s (its `s % chunk` assertion, mamba2.py:93)
-        y = ssd_scan_ref(xin, dt.to(xin.dtype), A.to(xin.dtype), B, C,
-                         chunk=min(cfg.ssm_chunk, s))
+    y = ssd(xin, dt, A, B, C, chunk=cfg.ssm_chunk, impl=impl)
     y = y + xin * p["D"][None, None, :, None].to(xin.dtype)
-    y = y.reshape(b, s, cfg.ssm_inner) * F.silu(z)
+    y = shard_ctx.constrain_channels(y.reshape(b, s, cfg.ssm_inner)) * \
+        F.silu(z)
     return y @ p["out_proj"]
 
 
@@ -142,22 +168,53 @@ def mamba_decode(p: Params, cfg: ModelConfig, xres: torch.Tensor,
     """One-token decode. xres (B,1,D); ssm_state (B,nh,hp,ns);
     conv_state (B,K-1,conv_dim). Both states are updated in place and
     returned: (out, ssm_state, conv_state)."""
-    b = xres.shape[0]
     di, ns, nh, hp = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     z, xbc, dt = _project(cfg, p, xres)
     conv_w = torch.cat([p["conv_x"], p["conv_bc"]], dim=-1)
-    xbc, new_conv = _causal_conv(xbc, conv_w, state=conv_state)
-    conv_state.copy_(new_conv)
-    xin = xbc[..., :di].reshape(b, nh, hp)
+    xbc = conv_step(xbc, conv_w, conv_state)
+    xin = shard_ctx.split_last(xbc[..., :di], (nh, hp))[:, 0]
     B = xbc[:, 0, di:di + ns]
     C = xbc[:, 0, di + ns:]
     dt = F.softplus(dt[:, 0].float() + p["dt_bias"])          # (B,nh)
     A = -torch.exp(p["A_log"])
+    y = ssm_step(xin, B, C, dt, A, ssm_state)
+    y = y.to(xres.dtype) + xin * p["D"][None, :, None].to(xin.dtype)
+    y = shard_ctx.merge_last(y)[:, None] * F.silu(z)
+    return y @ p["out_proj"], ssm_state, conv_state
+
+
+def conv_step(xbc, conv_w, conv_state):
+    """One token through the causal conv: xbc (B,1,C), conv_w (K,C);
+    conv_state (B,K-1,C) is advanced in place. A DTensor state is
+    advanced on each rank's own (batch, channel) shard."""
+    if shard_ctx.is_dtensor(conv_state):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = conv_state.placements
+        w_pl = [Shard(1) if x == Shard(2) else Replicate() for x in pl]
+        return shard_ctx.run_local(conv_step, (xbc, conv_w, conv_state),
+                                   (pl, w_pl, None), pl, tuple(xbc.shape))
+    out, new_conv = _causal_conv(xbc, conv_w, state=conv_state)
+    conv_state.copy_(new_conv)
+    return out
+
+
+def ssm_step(xin, B, C, dt, A, ssm_state):
+    """The recurrence for one token: xin (B,nh,hp), B/C (B,ns), dt (B,nh)
+    fp32, A (nh,); ssm_state (B,nh,hp,ns) is advanced in place. Returns
+    y = state . C (B,nh,hp) in fp32. A DTensor state is advanced on each
+    rank's own (batch, head) shard."""
+    if shard_ctx.is_dtensor(ssm_state):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = ssm_state.placements
+        row = [x if x == Shard(0) else Replicate() for x in pl]
+        a_pl = [Shard(0) if x == Shard(1) else Replicate() for x in pl]
+        return shard_ctx.run_local(ssm_step, (xin, B, C, dt, A, ssm_state),
+                                   (pl, row, row, pl, a_pl, None), pl,
+                                   tuple(xin.shape))
     decay = torch.exp(dt * A)                                 # (B,nh)
     upd = torch.einsum("bhp,bn,bh->bhpn", xin.float(), B.float(), dt)
     ssm_state.mul_(decay[..., None, None]).add_(upd)
-    y = torch.einsum("bhpn,bn->bhp", ssm_state.float(), C.float())
-    y = y.to(xres.dtype) + xin * p["D"][None, :, None].to(xin.dtype)
-    y = y.reshape(b, 1, di) * F.silu(z)
-    return y @ p["out_proj"], ssm_state, conv_state
+    return torch.einsum("bhpn,bn->bhp", ssm_state.float(), C.float())

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import shard_ctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, _act, _dense_init
 
@@ -80,11 +81,15 @@ def _moe_dense(p: Params, cfg: ModelConfig, x2d, gate, idx):
 
 
 def _moe_gather(p: Params, cfg: ModelConfig, x, gate, idx,
-                capacity_factor: float):
+                capacity_factor: float,
+                experts: tuple[int, int] | None = None):
     """Sort-based grouped dispatch with a fixed capacity per expert and
-    per row. x (B, T, D); gate, idx (B, T, k)."""
+    per row. x (B, T, D); gate, idx (B, T, k). ``experts`` (e0, n): the
+    weights in ``p`` are experts e0 .. e0 + n - 1 only, and the output is
+    their part of the sum (expert parallelism)."""
     b, t, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
+    e0, en = (0, e) if experts is None else experts
     cap = int(capacity_factor * t * k / e) + 1
     n, dev = t * k, x.device
     flat_e = idx.reshape(b, n)
@@ -101,18 +106,22 @@ def _moe_gather(p: Params, cfg: ModelConfig, x, gate, idx,
     src = torch.where(filled, start[..., None] + c, 0).reshape(b, e * cap)
     tok = torch.where(filled.reshape(b, e * cap),
                       torch.gather(stok, 1, src), t)
+    if experts is not None:
+        tok = tok.reshape(b, e, cap)[:, e0:e0 + en].reshape(b, en * cap)
     x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     rows = torch.arange(b, device=dev)[:, None]
-    xe = x_pad[rows, tok].reshape(b, e, cap, d).transpose(0, 1)
-    y = _experts(p, cfg, xe.reshape(e, b * cap, d))
-    y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    xe = x_pad[rows, tok].reshape(b, en, cap, d).transpose(0, 1)
+    y = _experts(p, cfg, xe.reshape(en, b * cap, d))
+    y = y.reshape(en, b, cap, d).transpose(0, 1).reshape(b, en * cap, d)
 
     # Each (token, choice)'s place in its expert's group, in the original
     # (T, k) order: sorted rank minus the group's start, unsorted.
     pos_sorted = torch.arange(n, device=dev) - torch.gather(start, 1, se)
     pos = torch.gather(pos_sorted, 1, torch.argsort(order, dim=-1))
     keep = pos < cap                      # dropped tokens contribute zero
-    slot = torch.where(keep, flat_e * cap + pos, 0)
+    if experts is not None:
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + en)
+    slot = torch.where(keep, (flat_e - e0) * cap + pos, 0)
     w = torch.where(keep, gate.reshape(b, n), 0)
     contrib = w[..., None] * y[rows, slot]               # (B, T*k, D)
     return contrib.reshape(b, t, k, d).sum(dim=2)
@@ -127,9 +136,47 @@ def moe(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     if impl not in IMPLS:
         raise ValueError(f"unknown moe impl {impl!r}; have {IMPLS}")
     b, s, d = x.shape
+    if impl == "gather" and shard_ctx.is_dtensor(x):
+        return _moe_expert_parallel(p, cfg, x, capacity_factor)
     if impl == "dense":
         x2d = x.reshape(b * s, d)
         gate, idx, aux = _route(p, cfg, x2d)
         return _moe_dense(p, cfg, x2d, gate, idx).reshape(b, s, d), aux
     gate, idx, aux = _route(p, cfg, x)
     return _moe_gather(p, cfg, x, gate, idx, capacity_factor), aux.mean()
+
+
+def _moe_expert_parallel(p: Params, cfg: ModelConfig, x, capacity_factor):
+    """The gather path on DTensors, experts split over "model": every rank
+    routes its own rows (the token axis replicated over "model", as the
+    block's activations already are), then runs the dispatch and its own
+    experts, and the output is a partial sum over "model" (each slot's
+    expert lives on one rank). DTensor has no sharding rule for the
+    dispatch's stable argsort, capacity gathers and inverse permutation,
+    so both steps run on local shards (`shard_ctx.run_local`)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    xpl = [Replicate() if n == "model" else shard_ctx.batch_or_replicate(x, i)
+           for i, n in enumerate(names)]
+    rep = [Replicate()] * mesh.ndim
+    wpl = [Shard(0) if n == "model" else Replicate() for n in names]
+    b, s, _ = x.shape
+    route_shape = (b, s, cfg.experts_per_token)
+    gate, idx, aux = shard_ctx.run_local(
+        lambda xl, r: _route({"router": r}, cfg, xl), (x, p["router"]),
+        (xpl, rep), [xpl, xpl, xpl], [route_shape, route_shape, (b,)])
+    size, off = shard_ctx.local_box(tuple(p["w_gate"].shape), mesh, wpl)
+    experts = (off[0], size[0])
+
+    def local(xl, gl, il, wg, wu, wd):
+        return _moe_gather({"w_gate": wg, "w_up": wu, "w_down": wd}, cfg, xl,
+                           gl, il, capacity_factor, experts=experts)
+
+    y = shard_ctx.run_local(
+        local, (x, gate, idx, p["w_gate"], p["w_up"], p["w_down"]),
+        (xpl, xpl, xpl, wpl, wpl, wpl),
+        [Partial() if n == "model" else xpl[i] for i, n in enumerate(names)],
+        tuple(x.shape))
+    return y, aux.mean()

@@ -23,6 +23,7 @@ Families, prefill, decode and training loss:
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -33,11 +34,14 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.attention import (_project_qkv, attention, attn_init,
-                                          check_impl, init_kv_cache)
+from repro_torch.models import shard_ctx
+from repro_torch.models.attention import (NEG_INF, _project_qkv, attention,
+                                          attn_init, check_impl,
+                                          init_kv_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, apply_rope, cross_entropy,
-                                       embed, embed_init, mlp, mlp_init,
+                                       embed, embed_init, label_logits,
+                                       logsumexp_last, mlp, mlp_init,
                                        rmsnorm, rmsnorm_init, unembed)
 
 
@@ -125,8 +129,9 @@ def _tree_set(dst, src, i: int) -> None:
 
 
 def _layer(blocks: Params, i: int) -> Params:
-    """Layer i's params: views into the stacked blocks."""
-    return _tree_map(lambda a: a[i], blocks)
+    """Layer i's params: views into the stacked blocks (DTensor blocks
+    FSDP-sharded over "data" are gathered over it, layer by layer)."""
+    return _tree_map(lambda a: shard_ctx.unshard(a[i]), blocks)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -187,25 +192,36 @@ def params_from_reference(params, device="cpu") -> Params:
 # ---------------------------------------------------------------------------
 
 
+# The block boundaries are anchored (`shard_ctx.constrain_act`, a no-op
+# unless the launch layer set its specs and x is a DTensor), and each
+# mixer's output too before its residual add: GSPMD propagates the
+# block-boundary anchor back through the add, where DTensor decides op by
+# op and would keep the row-parallel product's partial sums sharded on
+# d_model.
+
+
 def _attn_mlp_block(bp: Params, cfg: ModelConfig, x, *, window, prefix,
                     impl):
-    h = x + attention(bp["attn"], cfg, rmsnorm(bp["ln1"], x, cfg.norm_eps),
-                      window=window, prefix=prefix, impl=impl)
-    h = h + mlp(bp["mlp"], rmsnorm(bp["ln2"], h, cfg.norm_eps), cfg.mlp_act)
+    h = x + shard_ctx.constrain_act(attention(
+        bp["attn"], cfg, rmsnorm(bp["ln1"], x, cfg.norm_eps), window=window,
+        prefix=prefix, impl=impl))
+    h = h + shard_ctx.constrain_act(mlp(
+        bp["mlp"], rmsnorm(bp["ln2"], h, cfg.norm_eps), cfg.mlp_act))
     return h
 
 
 def _attn_moe_block(bp: Params, cfg: ModelConfig, x, *, impl, moe_impl):
-    h = x + attention(bp["attn"], cfg, rmsnorm(bp["ln1"], x, cfg.norm_eps),
-                      window=cfg.sliding_window, impl=impl)
+    h = x + shard_ctx.constrain_act(attention(
+        bp["attn"], cfg, rmsnorm(bp["ln1"], x, cfg.norm_eps),
+        window=cfg.sliding_window, impl=impl))
     y, aux = moe_mod.moe(bp["moe"], cfg, rmsnorm(bp["ln2"], h, cfg.norm_eps),
                          impl=moe_impl)
-    return h + y, aux
+    return h + shard_ctx.constrain_act(y), aux
 
 
 def _mamba_block(bp: Params, cfg: ModelConfig, x, *, impl):
-    return x + mamba2.mamba_forward(
-        bp["mamba"], cfg, rmsnorm(bp["ln"], x, cfg.norm_eps), impl=impl)
+    return x + shard_ctx.constrain_act(mamba2.mamba_forward(
+        bp["mamba"], cfg, rmsnorm(bp["ln"], x, cfg.norm_eps), impl=impl))
 
 
 def _remat(fn, remat: bool):
@@ -225,18 +241,19 @@ def _hybrid_forward(params, cfg, x, *, impl, remat):
     the reference's does."""
     k = cfg.attn_every
     blocks = params["blocks"]
+    shared = _tree_map(shard_ctx.unshard, params.get("shared_attn", {}))
 
     def mamba_layer(i):
-        return _remat(lambda h: _mamba_block(_layer(blocks, i), cfg, h,
-                                             impl=impl), remat)
+        return _remat(lambda h: shard_ctx.constrain_act(_mamba_block(
+            _layer(blocks, i), cfg, h, impl=impl)), remat)
 
     done = 0
     for _ in range(num_shared_attn_apps(cfg)):
         for i in range(done, done + k):
             x = mamba_layer(i)(x)
         done += k
-        x = _attn_mlp_block(params["shared_attn"], cfg, x,
-                            window=cfg.sliding_window, prefix=0, impl=impl)
+        x = _attn_mlp_block(shared, cfg, x, window=cfg.sliding_window,
+                            prefix=0, impl=impl)
     for i in range(done, cfg.num_layers):
         x = mamba_layer(i)(x)
     return x
@@ -247,10 +264,11 @@ def _backbone(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
               impl: str = "reference", moe_impl: str = "gather",
               remat: bool = False):
     check_impl(impl)
-    x = embed(params["embed"], tokens)
+    x = shard_ctx.constrain_act(embed(params["embed"], tokens))
     prefix = 0
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        x = shard_ctx.constrain_act(
+            torch.cat([prefix_embeds.to(x.dtype), x], dim=1))
         # bidirectional over the image patches; audio's prefix is causal
         prefix = prefix_embeds.shape[1] if cfg.family == "vlm" else 0
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -260,12 +278,14 @@ def _backbone(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         # 0 global), which the reference's `_dyn_window_block` masks
         for i, win in enumerate(layer_windows(cfg)):
             x = _remat(lambda h, bp=_layer(blocks, i), w=int(win):
-                       _attn_mlp_block(bp, cfg, h, window=w, prefix=prefix,
-                                       impl=impl), remat)(x)
+                       shard_ctx.constrain_act(_attn_mlp_block(
+                           bp, cfg, h, window=w, prefix=prefix, impl=impl)),
+                       remat)(x)
     elif cfg.family == "moe":
         for i in range(cfg.num_layers):
             x, a = _remat(lambda h, bp=_layer(blocks, i): _attn_moe_block(
                 bp, cfg, h, impl=impl, moe_impl=moe_impl), remat)(x)
+            x = shard_ctx.constrain_act(x)
             aux = aux + a
     elif cfg.family in ("ssm", "hybrid"):
         x = _hybrid_forward(params, cfg, x, impl=impl, remat=remat)
@@ -320,9 +340,7 @@ def streamed_cross_entropy(params: Params, cfg: ModelConfig, x: torch.Tensor,
     def nll_sum(xc, lc):
         h = rmsnorm(params["ln_f"], xc, cfg.norm_eps)
         logits = unembed(params["embed"], h).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
-        return torch.sum(logz - ll)
+        return torch.sum(logsumexp_last(logits) - label_logits(logits, lc))
 
     part = _remat(nll_sum, True)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -355,6 +373,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
         if prefix_embeds is not None:
             logits = logits[:, prefix_embeds.shape[1]:]
         ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    ce, aux = shard_ctx.replicated(ce), shard_ctx.replicated(aux)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
 
@@ -452,20 +471,107 @@ def _decode_attn(bp, cfg, x, k_cache, v_cache, idx: SlotIndex,
     the flash-decode op, which reads the cache in place; the others
     through its plain version, on a transposed view.
     """
-    b = x.shape[0]
     q, k, v = _project_qkv(bp["attn"], cfg, x)
     q = apply_rope(q, idx.rope_pos, cfg.rope_theta)
     k = apply_rope(k, idx.rope_pos, cfg.rope_theta)
-    k_cache[idx.rows, idx.wpos] = k[:, 0]
-    v_cache[idx.rows, idx.wpos] = v[:, 0]
+    out = cache_attend(q[:, 0], k[:, 0], v[:, 0], k_cache, v_cache, idx,
+                       impl=impl)
+    out = shard_ctx.merge_last(out)[:, None]
+    return out @ bp["attn"]["wo"], k_cache, v_cache
 
+
+def cache_attend(q, k, v, k_cache, v_cache, idx: SlotIndex, *,
+                 impl: str = "reference"):
+    """Write this token's k/v (B,Hkv,hd) into the caches (B,S,Hkv,hd) at
+    the slots' ring positions, then attend q (B,Hq,hd) against them ->
+    (B,Hq,hd): the flash-decode kernel (impl="kernel"), which reads the
+    cache in place, or its plain version on a transposed view.
+
+    DTensor caches stay as they lie: each rank writes and reads its own
+    (batch, sequence, head) shard, q/k/v laid out to match. Where the
+    layout splits the SEQUENCE over mesh axes (`decode_cache_specs`'
+    fallback when Hkv does not divide the model axis, kv_seq_shard, or a
+    batch of 1), each rank attends over its own keys and the partial
+    softmax is combined over those axes (flash decoding); the kernel
+    reads whole sequences, so it refuses such a layout."""
+    if shard_ctx.is_dtensor(k_cache):
+        return _cache_attend_sharded(q, k, v, k_cache, v_cache, idx, impl)
+    k_cache[idx.rows, idx.wpos] = k
+    v_cache[idx.rows, idx.wpos] = v
     if impl == "kernel":
-        out = da_ops.decode_attention(q[:, 0], k_cache, v_cache, idx.lengths,
-                                      lengths_dev=idx.lengths_dev)
-    else:
-        out = decode_attention_ref(q[:, 0], k_cache.transpose(1, 2),
-                                   v_cache.transpose(1, 2), idx.lengths_dev)
-    return out.reshape(b, 1, cfg.q_dim) @ bp["attn"]["wo"], k_cache, v_cache
+        return da_ops.decode_attention(q, k_cache, v_cache, idx.lengths,
+                                       lengths_dev=idx.lengths_dev)
+    return decode_attention_ref(q, k_cache.transpose(1, 2),
+                                v_cache.transpose(1, 2), idx.lengths_dev)
+
+
+def _cache_attend_sharded(q, k, v, k_cache, v_cache, idx: SlotIndex, impl):
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, cpl = k_cache.device_mesh, tuple(k_cache.placements)
+    # (B,S,Hkv,hd) cache dims -> (B,H,hd) token dims: batch 0, heads 1
+    tpl = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+           else Replicate() for p in cpl]
+    seq_dims = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    if seq_dims and impl == "kernel":
+        names = [mesh.mesh_dim_names[i] for i in seq_dims]
+        raise ValueError(
+            f"decode_attention kernel: this KV cache layout ({cpl} on mesh "
+            f"axes {mesh.mesh_dim_names}) shards the sequence over {names}; "
+            f"the kernel reads whole sequences: decode this layout with "
+            f"impl='chunked' or 'reference'")
+    size, off = shard_ctx.local_box(tuple(k_cache.shape), mesh, cpl)
+    rows = slice(off[0], off[0] + size[0])
+
+    def local(ql, kl, vl, kc, vc):
+        lidx = SlotIndex(
+            rope_pos=idx.rope_pos[rows], wpos=idx.wpos[rows],
+            rows=torch.arange(kc.shape[0], device=kc.device),
+            lengths=None if idx.lengths is None else idx.lengths[rows],
+            lengths_dev=idx.lengths_dev[rows])
+        if not seq_dims:
+            return cache_attend(ql, kl, vl, kc, vc, lidx, impl=impl)
+        return _seq_partial_attend(ql, kl, vl, kc, vc, lidx, off[1],
+                                   [(mesh, i) for i in seq_dims])
+
+    return shard_ctx.run_local(local, (q, k, v, k_cache, v_cache),
+                               (tpl, tpl, tpl, None, None), tpl,
+                               tuple(q.shape))
+
+
+def _seq_partial_attend(q, k, v, kc, vc, idx: SlotIndex, s0: int, groups):
+    """Flash decoding over a cache shard holding keys [s0, s0 + S_l): the
+    owning rank writes each slot's token, every rank scores its own keys,
+    and the softmax's max, sum and weighted values are all-reduced over
+    the ``groups`` (mesh, dim) that split the sequence. The products run
+    in the cache's type, as `decode_attention_ref`'s do (scores, then
+    probabilities cast to v's type); the softmax and the sums over ranks
+    in fp32."""
+    from torch.distributed import _functional_collectives as funcol
+
+    b, s_l = kc.shape[0], kc.shape[1]
+    w = idx.wpos - s0
+    mine = ((w >= 0) & (w < s_l))[:, None, None]
+    w = w.clamp(0, max(s_l - 1, 0))
+    kc[idx.rows, w] = torch.where(mine, k, kc[idx.rows, w])
+    vc[idx.rows, w] = torch.where(mine, v, vc[idx.rows, w])
+    hq, hd = q.shape[1], q.shape[2]
+    hkv = kc.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg, kc).float() / math.sqrt(hd)
+    j = s0 + torch.arange(s_l, device=kc.device)
+    ok = (j[None, :] < idx.lengths_dev[:, None])[:, None, None, :]
+    sc = torch.where(ok, sc, NEG_INF)
+    m = sc.amax(-1)
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    p = torch.where(ok, torch.exp(sc - m[..., None]), 0.0)
+    den = p.sum(-1)
+    acc = torch.einsum("bhgk,bkhd->bhgd", p.to(vc.dtype), vc).float()
+    for g in groups:
+        den = funcol.all_reduce(den, "sum", g)
+        acc = funcol.all_reduce(acc, "sum", g)
+    return (acc / den[..., None]).reshape(b, hq, hd).to(v.dtype)
 
 
 def _decode_attn_ffn_block(bp, cfg, x, k_cache, v_cache, idx: SlotIndex,
@@ -500,6 +606,7 @@ def _hybrid_decode(params, cfg, x, caches, pos, impl="reference"):
     """`_hybrid_forward`'s order at decode: each application of the shared
     block has its own KV cache and shares the block's weights."""
     k, apps = cfg.attn_every, num_shared_attn_apps(cfg)
+    shared = _tree_map(shard_ctx.unshard, params.get("shared_attn", {}))
     if apps:
         kc, vc = caches["shared_kv"]["k"], caches["shared_kv"]["v"]
         idx = slot_index(pos, kc.shape[2], x.device)
@@ -509,8 +616,8 @@ def _hybrid_decode(params, cfg, x, caches, pos, impl="reference"):
             x = _mamba_decode_block(_layer(params["blocks"], i), cfg, x,
                                     caches, i)
         done += k
-        x, _, _ = _decode_attn_ffn_block(params["shared_attn"], cfg, x,
-                                         kc[app], vc[app], idx, impl=impl)
+        x, _, _ = _decode_attn_ffn_block(shared, cfg, x, kc[app], vc[app],
+                                         idx, impl=impl)
     for i in range(done, cfg.num_layers):
         x = _mamba_decode_block(_layer(params["blocks"], i), cfg, x, caches,
                                 i)

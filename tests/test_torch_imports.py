@@ -79,3 +79,27 @@ def test_launch_analysis_imports_nothing_forbidden():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_sharded_program_imports_nothing_forbidden():
+    """The sharded LLM program (sharding rules, activation anchors, the
+    collective counter, the production meshes, the topology shim) imports
+    alone without any of the forbidden packages, and importing the whole
+    package starts no process group nor loads the fake backend."""
+    code = (
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        "import importlib, pkgutil, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.models.shard_ctx, repro_torch.core.topology\n"
+        "from repro_torch.launch.mesh import fake_world, make_production_mesh\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "assert not dist.is_initialized()\n"
+        "assert 'torch.testing._internal.distributed.fake_pg' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -4,7 +4,8 @@ on the reference's calibration probes (band 0.7-1.6, the reference's own
 test's), equal to `FlopCounterMode`'s count; `dry_pair` in its three
 modes on both meshes at reduced size with exact argument bytes; the
 mesh runtime's per-shard state allocated on fake tensors equal to
-`fl_mesh_report`'s state bytes; the CLIs and the perf pairs' skips."""
+`fl_mesh_report`'s state bytes; the CLIs; perf pair B's sharding
+variants on the sharded mesh."""
 
 import dataclasses
 import json
@@ -138,13 +139,25 @@ def test_dryrun_and_roofline_clis(tmp_path, capsys):
         in table[2]
 
 
-def test_perf_pair_b_skips_the_sharding_variants(tmp_path):
-    """B0 runs (depth cut to one layer); B1 and B2 only change sharding."""
+def test_perf_pair_b_skips_the_sharding_variants(tmp_path, capsys):
+    """Pair B's sharding variants leave the card mesh, where they would
+    be skipped, for the sharded one: B0 on "h100" and on "h100x256", B1
+    (no FSDP) and B2 (no FSDP, KV sequence sharded) beside the latter,
+    one layer; the roofline table prices the sharded rows with a
+    collective term."""
     perf.pair_b(out=tmp_path, layers=1)
     got = {p.stem: json.loads(p.read_text()) for p in tmp_path.glob("*")}
     assert got["B0_base"]["status"] == "ok"
     assert got["B0_base"]["layers"] == 1
-    for name in ("B1_tp_resident", "B2_kv_seq_shard"):
-        assert got[name]["status"] == "skipped"
-        assert got[name]["reason"] == perf.NO_SHARD_AXIS
+    assert got["B0_base"]["mesh"] == "h100"
+    for name in ("B0_base_x256", "B1_tp_resident", "B2_kv_seq_shard"):
+        assert got[name]["status"] == "ok", got[name].get("error")
+        assert got[name]["mesh"] == "h100x256"
+        assert got[name]["mesh_shape"] == [16, 16]
+        assert got[name]["layers"] == 1
         assert got[name]["hypothesis"]
+        assert roofline.roofline_row(got[name]).collective_s > 0
+    capsys.readouterr()
+    assert roofline.main([str(tmp_path)]) == 0
+    table = capsys.readouterr().out
+    assert "| gemma3_27b | decode_32k | h100x256 | ok" in table
