@@ -319,6 +319,25 @@ Phases, each printing one JSON line:
    ms a round of each run; one traced run checked by `validate_trace`;
    (e) `python -m repro_torch.design.search --networks gaia --workloads
    femnist --quick`, cycle and tta objectives, exit 0.
+27. examples (last): the five scripts of examples_torch/ at their
+   defaults, each through `main([..., "--device", "cuda"])` with its
+   stdout captured, against the same script with `--device cpu`
+   (topology_comparison's, quickstart's and fl_llm_finetune's host runs
+   come from the host workers): topology_comparison's tables equal;
+   quickstart's sections 1-6 equal, 3 `edge_aggregate` launches in its
+   3-round `run_reduced_fl`, its regional fleet's regions equal, one
+   capture per region engine, the profiler's `decode_attention` kernels
+   a replay equal to the served model's attention layers (reduced
+   mamba2-370m has none); serve_decode (reduced gemma3-27b, fp32, 24
+   greedy steps with `decode_step(impl="kernel")`): tokens equal,
+   logits within `_tol`, one launch per attention layer a step;
+   continuous_batching (reduced yi-9b, 3 slots): outputs and engine
+   steps equal, one capture, one kernel per attention layer a replay,
+   then the kernel on the engine's live caches against its plain
+   version and timed there (the examples' `decode_attention` row);
+   fl_llm_finetune (LoRA on one stacked shard, multigraph and ring, 60
+   rounds each): 60 `edge_aggregate` launches per topology, losses
+   within LORA_LOSS_RTOL of the host run's, simulated columns equal.
 
 `python3 chip_smoke.py --decode-bench DIR` instead times only the
 decode kernel of the port under DIR/src at the three decode shapes
@@ -331,8 +350,8 @@ profiler keeps, in a bare and a padded window, as the process ages.
 Host work that needs no card runs beside the card phases, from the end
 of phase HOST_WORK_AFTER, in worker processes of one thread each
 (`start_host_work`): the dry runs and the dryrun CLI of phase 22, the
-sharded dry runs of phase 22b and the host scorer of phase 26 (b); the
-phases that read it wait for it. The
+sharded dry runs of phase 22b, the host scorer of phase 26 (b) and the
+examples' host runs of phase 27; the phases that read it wait for it. The
 profiles are summed from the profiler's raw records (`device_averages`,
 `host_averages`: what `key_averages` gives, without the event tree that
 costs minutes of host time). Every JSON line carries `t_s`, the seconds
@@ -1885,16 +1904,26 @@ def start_host_work(ctx) -> None:
     """Start, in a pool of worker processes, the smoke's host work that
     needs no card: the dry runs of `llm_train`'s steps and the dryrun CLI
     (read by `phase_launch_analysis`), the sharded dry run and `fl8`'s dry
-    states (read by `phase_sharded_host`) and the host scorer's candidate
-    sets (read by `phase_design_search`)."""
+    states (read by `phase_sharded_host`), the host scorer's candidate
+    sets (read by `phase_design_search`) and the examples' host runs
+    (read by `phase_examples`)."""
     import multiprocessing
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     pool = multiprocessing.get_context("spawn").Pool(
         len(TRAIN_ARCHS) + 1, initializer=_host_worker_init)
-    jobs = {f"dry_peak/{arch}": pool.apply_async(_dry_train_peak, (arch,))
-            for arch in TRAIN_ARCHS}
+    # the examples' host runs first: they are short, and phase examples
+    # reads them last, after the host-bound design phases
+    jobs = {f"example/{name}/{dev}": pool.apply_async(_example_on_host,
+                                                      (name, dev))
+            for name, dev in (("topology_comparison", "cuda"),
+                              ("topology_comparison", "cpu"),
+                              ("quickstart", "cpu"),
+                              ("fl_llm_finetune", "cpu"))}
+    jobs.update({f"dry_peak/{arch}": pool.apply_async(_dry_train_peak,
+                                                      (arch,))
+                 for arch in TRAIN_ARCHS})
     jobs["dryrun_cli"] = _DryrunCli(tmp)
     jobs["dryrun_sharded"] = _DryrunCli(str(Path(tmp) / "sharded"),
                                         SHARDED_DRYRUN_CLI)
@@ -2579,6 +2608,270 @@ def phase_design_search(torch, ctx):
          simulated_note="cycle times, tta_s and totals are simulated "
                         "seconds of the paper's network model, not times "
                         "of the card")
+
+
+# ---------------------------------------------------------------------------
+# examples: the five scripts of examples_torch/, through their main()
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples_torch"
+#: fl_llm_finetune's rounds a topology and serve_decode's greedy steps:
+#: the scripts' defaults
+EXAMPLE_FT_ROUNDS = 60
+EXAMPLE_DECODE_STEPS = 24
+
+
+def _load_example(name: str):
+    """``examples_torch/<name>.py`` as a fresh module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(mod, *argv, **kw) -> tuple:
+    """``mod.main(argv)`` with its stdout captured: (stdout, result,
+    seconds)."""
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(list(argv), **kw)
+    return buf.getvalue(), res, time.perf_counter() - t0
+
+
+def _example_on_host(name: str, device: str) -> dict:
+    """Example ``name`` with ``--device device`` in a host worker: its
+    stdout, seconds and what the card's run is held against."""
+    out, res, seconds = _run_example(_load_example(name), "--device", device)
+    if name == "quickstart":
+        res = dict(regions=list(res["fleet"].regions),
+                   serving=res["serving"])
+    elif name == "fl_llm_finetune":
+        res = {topo: {k: r[k] for k in ("losses", "sim_mean_cycle_ms",
+                                        "sim_total_time_s")}
+               for topo, r in res.items()}
+    else:
+        res = None
+    return dict(stdout=out, result=res, seconds=seconds)
+
+
+def _attention_layers(cfg) -> int:
+    """Attention applications in one decode step of ``cfg``."""
+    from repro_torch.models import transformer as tf
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return tf.num_shared_attn_apps(cfg)
+    return cfg.num_layers
+
+
+def _replay_kernels(torch, eng, layers: int) -> dict:
+    """A captured engine's device kernels a replay, by the profiler, on
+    one more request (these replays are not the example's): all of them
+    and the `decode_attention` kernels, four replays a profile. The
+    profiler drops records late in a process, which can only lower a
+    reading, so up to three profiles are taken until one reads
+    ``layers`` kernels a replay; ``ok``: one did, a profile saw device
+    records, and none read more."""
+    from repro_torch.serving import Request
+    eng.submit(Request(prompt=[1] * 4, max_new_tokens=12))
+    readings = []
+    for _ in range(3):
+        before = eng.steps
+        with profiled(torch) as p:
+            for _ in range(4):
+                eng.step()
+        ev = device_averages(p)
+        n = eng.steps - before
+        readings.append(dict(
+            device_ops_per_replay=sum(e.count for e in ev) / n,
+            decode_attention_per_replay=sum(
+                e.count for e in ev if "decode_attn" in e.key) / n))
+        if ev and readings[-1]["decode_attention_per_replay"] == layers:
+            break
+    per = [r["decode_attention_per_replay"] for r in readings]
+    return dict(readings=readings, ok=layers in per and max(per) <= layers
+                and any(r["device_ops_per_replay"] for r in readings))
+
+
+def _live_cache_kernel(torch, ctx, eng, what: str) -> dict:
+    """`decode_attention` on the live caches of ``eng``'s first KV group
+    (one random query a layer, the slots' lengths) against its plain
+    version, and timed there (`_decode_timing`)."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    cfg = eng.cfg
+    kv = eng.caches["kv"][0]
+    lens = torch.clamp(torch.from_numpy(eng.positions + 1),
+                       max=eng.max_seq).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sets, errs = [], []
+    for i in range(kv["k"].shape[0]):
+        q = torch.randn((eng.max_slots, cfg.num_heads, cfg.head_dim),
+                        generator=gen, device="cuda")
+        got = dec.decode_attention(q, kv["k"][i], kv["v"][i], lens)
+        errs.append(_compare(torch, got, _dec_plain(q, kv["k"][i],
+                                                    kv["v"][i], lens),
+                             "float32", f"decode_attention, {what} layer {i}"))
+        sets.append((q, kv["k"][i], kv["v"][i]))
+    return dict(max_abs_diff=errs, **_decode_timing(torch, ctx, sets, lens))
+
+
+def phase_examples(torch, ctx):
+    """The five examples of examples_torch/ at their defaults, each
+    through ``main([..., "--device", "cuda"])`` with its stdout captured
+    and held against the same script with ``--device cpu`` (the host
+    runs of topology_comparison, quickstart and fl_llm_finetune come from
+    the host workers; serve_decode's and continuous_batching's run
+    here). Checks: topology_comparison's stdout equal; quickstart's
+    sections 1-6 equal, 3 `edge_aggregate` launches, its fleet's regions
+    equal, one capture per region engine and the profiler's
+    `decode_attention` kernels a replay equal to the served model's
+    attention layers (none: reduced mamba2-370m is attention-free);
+    serve_decode's tokens equal, its logits within `_tol` (fp32) and
+    attention layers x EXAMPLE_DECODE_STEPS `decode_attention`
+    launches; continuous_batching's outputs and engine steps equal, one
+    capture, the profiler's `decode_attention` kernels a replay equal to
+    the attention layers; fl_llm_finetune's losses within LORA_LOSS_RTOL
+    of the host's and its simulated columns equal, per topology, with
+    EXAMPLE_FT_ROUNDS `edge_aggregate` launches each. Then the kernel on
+    continuous_batching's live caches against its plain version, timed
+    for the examples' `decode_attention` row."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.gossip_combine import ops as ea
+    torch.use_deterministic_algorithms(False)
+    t_phase = time.perf_counter()
+    walls, out = {}, {}
+    cuda = ("--device", "cuda")
+
+    # topology_comparison: host numpy on either device, in host workers
+    card = host_result(ctx, "example/topology_comparison/cuda")
+    host = host_result(ctx, "example/topology_comparison/cpu")
+    if card["stdout"] != host["stdout"] or "ours vs RING" not in card[
+            "stdout"]:
+        raise AssertionError("topology_comparison: --device cuda and "
+                             "--device cpu print different tables")
+    walls["topology_comparison"] = card["seconds"]
+    out["topology_comparison"] = dict(stdout_equal=True,
+                                      host_s=host["seconds"])
+
+    # quickstart: sections 1-6 on the host, section 7 on the card
+    ea.edge_aggregate.launches = 0
+    text, res, walls["quickstart"] = _run_example(
+        _load_example("quickstart"), *cuda)
+    qs_launches = ea.edge_aggregate.launches
+    host = host_result(ctx, "example/quickstart/cpu")
+    same_head = (text.partition("\nserving: ")[0]
+                 == host["stdout"].partition("\nserving: ")[0])
+    fleet = res["fleet"]
+    caps = {r: v.engine.captures for r, v in fleet.regions.items()}
+    eng = next(iter(fleet.regions.values())).engine
+    layers = _attention_layers(eng.cfg)
+    replay = _replay_kernels(torch, eng, layers)
+    out["quickstart"] = dict(
+        edge_aggregate_launches=qs_launches, regions=list(caps),
+        captures=caps, serving=res["serving"],
+        serving_cpu=host["result"]["serving"], arch=eng.cfg.name,
+        attention_layers=layers, replay=replay, sections_1_6_equal=same_head,
+        host_s=host["seconds"])
+    if qs_launches != 3 or not same_head \
+            or list(caps) != host["result"]["regions"] \
+            or set(caps.values()) != {1} or not replay["ok"]:
+        raise AssertionError(f"quickstart: {out['quickstart']}")
+    del res, fleet, eng
+
+    # serve_decode: decode_step(impl="kernel") against the CPU's plain path
+    mod = _load_example("serve_decode")
+    dec.decode_attention.launches = 0
+    _, card, walls["serve_decode"] = _run_example(mod, *cuda)
+    sd_launches = dec.decode_attention.launches
+    _, host, host_s = _run_example(mod, "--device", "cpu")
+    layers = _attention_layers(card["cfg"])
+    err = _compare(torch, card["logits"], host["logits"], "float32",
+                   "serve_decode logits, card vs CPU")
+    out["serve_decode"] = dict(
+        arch=card["cfg"].name, decode_attention_launches=sd_launches,
+        attention_layers=layers, steps=EXAMPLE_DECODE_STEPS,
+        logits_max_abs_err=err, host_s=host_s,
+        tokens_equal=bool(torch.equal(card["tokens"], host["tokens"])))
+    if sd_launches != layers * EXAMPLE_DECODE_STEPS \
+            or not out["serve_decode"]["tokens_equal"]:
+        raise AssertionError(f"serve_decode: {out['serve_decode']}")
+
+    # continuous_batching: the captured engine against the CPU's eager one
+    mod = _load_example("continuous_batching")
+    dec.decode_attention.launches = 0
+    _, card, walls["continuous_batching"] = _run_example(mod, *cuda)
+    wrapper = dec.decode_attention.launches
+    _, host, host_s = _run_example(mod, "--device", "cpu")
+    eng = card["engine"]
+    layers = _attention_layers(eng.cfg)
+    # the wrapper runs in the warm-up steps and the capture; the replays
+    # launch the captured kernels without it
+    cb_launches = wrapper - layers * eng.captures + eng.steps * layers
+    replay = _replay_kernels(torch, eng, layers)
+    out["continuous_batching"] = dict(
+        arch=eng.cfg.name, engine_steps=card["steps"],
+        engine_steps_cpu=host["steps"], captures=eng.captures,
+        outputs_equal=card["outputs"] == host["outputs"],
+        decode_attention_wrapper_calls=wrapper,
+        decode_attention_launches=cb_launches, replay=replay, host_s=host_s)
+    if not out["continuous_batching"]["outputs_equal"] \
+            or card["steps"] != host["steps"] or eng.captures != 1 \
+            or not replay["ok"]:
+        raise AssertionError(f"continuous_batching: "
+                             f"{out['continuous_batching']}")
+    timing = _live_cache_kernel(torch, ctx, eng, "continuous_batching")
+    out["continuous_batching"]["decode_attention_live_caches"] = timing
+    del card, host, eng
+
+    # fl_llm_finetune: LoRA on the mesh runtime, one launch a round
+    mod = _load_example("fl_llm_finetune")
+    per_topology = {}
+    train = mod.run_reduced_fl
+
+    def counted(cfg, device=None):
+        ea.edge_aggregate.launches = 0
+        r = train(cfg, device=device)
+        per_topology[cfg.topology] = ea.edge_aggregate.launches
+        return r
+
+    mod.run_reduced_fl = counted
+    _, card, walls["fl_llm_finetune"] = _run_example(mod, *cuda)
+    host = host_result(ctx, "example/fl_llm_finetune/cpu")
+    ft = {}
+    for topo, r in card.items():
+        h = host["result"][topo]
+        ft[topo] = dict(
+            edge_aggregate_launches=per_topology[topo],
+            loss_first=r["loss_first"], loss_last=r["loss_last"],
+            loss_max_rel_diff_vs_cpu=max(abs(a - b) / abs(b) for a, b in
+                                         zip(r["losses"], h["losses"])),
+            sim_mean_cycle_ms=r["sim_mean_cycle_ms"],
+            sim_total_time_s=r["sim_total_time_s"],
+            sim_equal=all(r[k] == h[k] for k in ("sim_mean_cycle_ms",
+                                                 "sim_total_time_s")))
+    out["fl_llm_finetune"] = dict(topologies=ft, loss_rtol=LORA_LOSS_RTOL,
+                                  host_s=host["seconds"])
+    if set(ft) != {"multigraph", "ring"} or any(
+            v["edge_aggregate_launches"] != EXAMPLE_FT_ROUNDS
+            or v["loss_max_rel_diff_vs_cpu"] > LORA_LOSS_RTOL
+            or not v["sim_equal"] for v in ft.values()):
+        raise AssertionError(f"fl_llm_finetune: {ft}")
+
+    ctx["launches"]["edge_aggregate_examples"] = qs_launches + sum(
+        per_topology.values())
+    ctx["launches"]["decode_attention_examples"] = sd_launches + cb_launches
+    ctx["examples_row"] = dict(
+        max_abs_err=max(timing["max_abs_diff"]), ms=timing["kernel_ms"],
+        plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+        bound_by=timing["bound_by"], library_ms=timing["library_ms"])
+    emit(phase="examples", ok=True, seconds=time.perf_counter() - t_phase,
+         example_wall_s=walls, host_waited_s={
+             k: v for k, v in ctx["host_work"]["waited_s"].items()
+             if k.startswith("example/")}, nvidia_smi=ctx["smi"], **out)
 
 
 # flash_attention cases of the reference's kernel tests: (b, hq, hkv, s,
@@ -4406,20 +4699,7 @@ def _fleet(torch, ctx, ckpt_dir) -> tuple:
     agree = sum(a == b for a, b in zip(tokens["cuda"], tokens["cpu"]))
     # the kernel on the live caches of the first region's engine
     eng = next(iter(card.regions.values())).engine
-    kv = eng.caches["kv"][0]
-    lens = torch.clamp(torch.from_numpy(eng.positions + 1),
-                       max=FLEET_SEQ).to(torch.int32)
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    sets, errs = [], []
-    for i in range(layers):
-        q = torch.randn((FLEET_SLOTS, cfg_m.num_heads, cfg_m.head_dim),
-                        generator=gen, device="cuda")
-        got = dec.decode_attention(q, kv["k"][i], kv["v"][i], lens)
-        errs.append(_compare(torch, got, _dec_plain(q, kv["k"][i],
-                                                    kv["v"][i], lens),
-                             "float32", f"decode_attention, fleet layer {i}"))
-        sets.append((q, kv["k"][i], kv["v"][i]))
-    timing = _decode_timing(torch, ctx, sets, lens)
+    live = _live_cache_kernel(torch, ctx, eng, "fleet")
     # the kernels a replay, from the profiler, on one more request (these
     # replays are not the sweep's)
     eng.submit(Request(prompt=[1] * 8, max_new_tokens=8))
@@ -4439,11 +4719,11 @@ def _fleet(torch, ctx, ckpt_dir) -> tuple:
                              f" kernels a replay, not {layers}")
     launches = wrapper - layers * len(caps) + out["cuda"]["engine_steps"] \
         * layers
-    row = dict(launches=launches, max_abs_err=max(errs),
-               ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
-               bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
-               library_ms=timing["library_ms"])
-    del card, fleets, fleet, eng, kv, sets
+    row = dict(launches=launches, max_abs_err=max(live["max_abs_diff"]),
+               ms=live["kernel_ms"], plain_ms=live["plain_ms"],
+               bound_ms=live["bound_ms"], bound_by=live["bound_by"],
+               library_ms=live["library_ms"])
+    del card, fleets, fleet, eng
     return dict(arch=cfg_m.name, regions=list(caps), captures=caps,
                 loads=list(FLEET_LOADS), traffic=FLEET_TRAFFIC,
                 slots=FLEET_SLOTS, max_seq=FLEET_SEQ, summaries=summaries[
@@ -4452,8 +4732,7 @@ def _fleet(torch, ctx, ckpt_dir) -> tuple:
                 decode_attention_per_replay=layers,
                 decode_attention_launches=launches,
                 card=out["cuda"], cpu=out["cpu"],
-                decode_attention_fleet_shape=dict(max_abs_diff=errs,
-                                                  **timing)), row
+                decode_attention_fleet_shape=live), row
 
 
 def _serving_cli(torch, tmp: Path) -> dict:
@@ -5535,7 +5814,7 @@ def main() -> int:
               phase_run_fl_surface, phase_fl_mesh, phase_launch_analysis,
               phase_sharded_host, phase_run_fl_models,
               phase_topologies,
-              phase_design_loop, phase_design_search]
+              phase_design_loop, phase_design_search, phase_examples]
     walls = {}
     try:
         for phase in phases:
@@ -5587,6 +5866,13 @@ def main() -> int:
         ea_row("edge_aggregate_train", rows["mamba2_leaves"],
                path="run_reduced_fl at the CLI's defaults: one launch a "
                     "round for all 12 leaves; timed on the 12 leaves"),
+        ea_row("edge_aggregate_examples", rows["mamba2_leaves"],
+               path="examples: quickstart's run_reduced_fl (3 rounds, 6 "
+                    "gaia silos) and fl_llm_finetune's LoRA runs on one "
+                    f"stacked shard ({EXAMPLE_FT_ROUNDS} rounds x 2 "
+                    "topologies, 5 silos), one launch a round; timed on "
+                    "reduced mamba2-370m's 12 leaves on 4 gaia silos in "
+                    "phase edge_aggregate"),
         _kernel_row(ctx, "gossip_combine",
                     "src/repro/kernels/gossip_combine/kernel.py:46"),
         _kernel_row(ctx, "flash_attention",
@@ -5618,6 +5904,15 @@ def main() -> int:
                **row) for row in ctx["serving_rows"]],
         *[dict(_kernel_row(ctx, name, FAMILY_REPLACES[name]), **row)
           for name, row in ctx["family_rows"]],
+        dict(_kernel_row(ctx, "decode_attention",
+                         "src/repro/kernels/decode_attention/kernel.py:75"),
+             path="examples: serve_decode (reduced gemma3-27b, fp32, "
+                  f"{EXAMPLE_DECODE_STEPS} steps, decode_step "
+                  "impl='kernel') and continuous_batching (reduced yi-9b, "
+                  "3 slots, the captured engine's warm-up and replays); "
+                  "timed on continuous_batching's live caches (fp32, hd 32)",
+             launches=ctx["launches"]["decode_attention_examples"],
+             **ctx["examples_row"]),
         _kernel_row(ctx, "ssd_scan",
                     "src/repro/kernels/ssd_scan/kernel.py:71")]}))
     print(ctx["smi"])

@@ -68,6 +68,27 @@ class SimpleGraph:
                 out.append(i)
         return out
 
+    def adjacency(self) -> np.ndarray:
+        a = np.zeros((self.num_nodes, self.num_nodes), dtype=bool)
+        for i, j in self.pairs:
+            a[i, j] = a[j, i] = True
+        return a
+
+    def is_connected(self) -> bool:
+        if self.num_nodes == 0:
+            return True
+        adj = self.adjacency()
+        seen = np.zeros(self.num_nodes, dtype=bool)
+        stack = [0]
+        seen[0] = True
+        while stack:
+            u = stack.pop()
+            for v in np.flatnonzero(adj[u]):
+                if not seen[v]:
+                    seen[v] = True
+                    stack.append(int(v))
+        return bool(seen.all())
+
 
 def make_graph(num_nodes: int, pairs: Iterable[Pair]) -> SimpleGraph:
     cpairs = sorted({canon(*p) for p in pairs})
@@ -86,6 +107,12 @@ class Multigraph:
     def pairs(self) -> tuple[Pair, ...]:
         return tuple(sorted(self.multiplicity))
 
+    def overlay(self) -> SimpleGraph:
+        return make_graph(self.num_nodes, self.multiplicity.keys())
+
+    def total_edges(self) -> int:
+        return int(sum(self.multiplicity.values()))
+
 
 @dataclasses.dataclass(frozen=True)
 class MultigraphState:
@@ -97,3 +124,27 @@ class MultigraphState:
     def strong_pairs(self) -> tuple[Pair, ...]:
         return tuple(sorted(p for p, t in self.edge_type.items()
                             if t == STRONG))
+
+    def weak_pairs(self) -> tuple[Pair, ...]:
+        return tuple(sorted(p for p, t in self.edge_type.items()
+                            if t == WEAK))
+
+    def strong_graph(self) -> SimpleGraph:
+        return make_graph(self.num_nodes, self.strong_pairs())
+
+    def strong_degrees(self) -> np.ndarray:
+        return self.strong_graph().degrees()
+
+    def isolated_nodes(self) -> tuple[int, ...]:
+        """Nodes whose incident edges are all weak (paper §3.2). Only
+        nodes with at least one incident overlay pair count."""
+        has_edge = np.zeros(self.num_nodes, dtype=bool)
+        has_strong = np.zeros(self.num_nodes, dtype=bool)
+        for (i, j), t in self.edge_type.items():
+            has_edge[i] = has_edge[j] = True
+            if t == STRONG:
+                has_strong[i] = has_strong[j] = True
+        return tuple(int(n) for n in np.flatnonzero(has_edge & ~has_strong))
+
+    def has_isolated(self) -> bool:
+        return len(self.isolated_nodes()) > 0

@@ -18,6 +18,14 @@ import math
 from repro_torch.core.graph import STRONG, WEAK, Multigraph, MultigraphState, Pair
 
 
+def max_states(mg: Multigraph) -> int:
+    """s_max = least common multiple of all pair multiplicities."""
+    s = 1
+    for n in mg.multiplicity.values():
+        s = math.lcm(s, n)
+    return s
+
+
 def capped_multiplicities(mult: dict[Pair, int],
                           cap_states: int | None) -> dict[Pair, int]:
     """Clamp multiplicities so their LCM stays within ``cap_states``.
@@ -61,3 +69,10 @@ def parse_multigraph(mg: Multigraph, cap_states: int | None = None) -> list[Mult
                 Lbar[p] -= 1
         states.append(MultigraphState(num_nodes=mg.num_nodes, edge_type=edge_type))
     return states
+
+
+def state_schedule(states: list[MultigraphState], num_rounds: int):
+    """Yield (round, state) cycling through the parsed states."""
+    s = len(states)
+    for k in range(num_rounds):
+        yield k, states[k % s]

@@ -298,6 +298,11 @@ class DesignContext:
 
     # -- per-network (provably workload-independent) artifacts ------------
 
+    def physical(self) -> SimpleGraph:
+        if "physical" not in self._per_net:
+            self._per_net["physical"] = catalog.physical_graph(self.net)
+        return self._per_net["physical"]
+
     def matcha_matchings(self) -> tuple:
         if "matcha" not in self._per_net:
             base = catalog.connectivity_graph(self.net)

@@ -59,6 +59,7 @@ import torch
 from repro_torch.fl import flat as flatmod
 from repro_torch.fl import gossip
 from repro_torch.fl import runtime as flrt
+from repro_torch.fl.flat import Params  # noqa: F401
 from repro_torch.fl.runtime import FlatFLState, FlatRuntime
 from repro_torch.kernels.gossip_combine import ops as gossip_ops
 from repro_torch.kernels.gossip_combine.ref import (Segment,

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.fl import flat as flatmod
 from repro_torch.fl.dpasgd import RoundPlan
+from repro_torch.fl.flat import Params  # noqa: F401
 from repro_torch.kernels.gossip_combine import ops as gossip_ops
 from repro_torch.kernels.gossip_combine.ref import (Segment,
                                                     dense_edge_aggregate,

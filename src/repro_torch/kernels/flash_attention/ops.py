@@ -117,10 +117,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     type, fp32 accumulation."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal,
-                                  window=window, prefix=prefix)
-        return out.transpose(1, 2)
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         window=window, prefix=prefix)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check_cuda(q, k, v)
@@ -152,3 +150,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "cuda_core": 0}
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = True,
+                              window: int = 0, prefix: int = 0) -> torch.Tensor:
+    """The plain version with the op's model-layout signature, on any
+    device: q (B, S, Hq, hd), k/v (B, S, Hkv, hd) -> (B, S, Hq, hd)."""
+    out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window, prefix=prefix)
+    return out.transpose(1, 2)

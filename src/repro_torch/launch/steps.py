@@ -27,6 +27,7 @@ from repro_torch.models import shard_ctx
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import check_impl
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Params  # noqa: F401
 from repro_torch.optim import Optimizer, adamw
 
 #: Prefill and serving: on the card this is the CUDA `ssd_scan` kernel in

@@ -100,6 +100,13 @@ def scan_inputs(p: Params, cfg: ModelConfig, xres: torch.Tensor):
     return z, (xin, dt, A, xbc[..., di:di + ns], xbc[..., di + ns:])
 
 
+def ssd_reference(x, dt, A, B, C, chunk: int):
+    """The plain chunked SSD scan under the reference's name and
+    signature (`kernels.ssd_scan.ref.ssd_scan_ref`): x (b,s,h,p),
+    dt (b,s,h), A (h,), B/C (b,s,n) -> y (b,s,h,p)."""
+    return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+
+
 def ssd(xin, dt, A, B, C, *, chunk: int, impl: str):
     """The SSD scan through ``impl``: the CUDA kernel ("kernel") or the
     reference's plain branch (dt and A in x's type; the chunk must divide

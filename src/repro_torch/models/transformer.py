@@ -49,6 +49,12 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def set_activation_sharding(spec) -> None:
+    """Back-compat shim: sets only the block-boundary act spec
+    (`shard_ctx.set_specs(act=spec)`)."""
+    shard_ctx.set_specs(act=spec)
+
+
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
     """Per-layer attention window (0 = full/global)."""
     if cfg.global_every:

@@ -7,8 +7,8 @@ counterpart of `repro.networks.registry`.
     list_networks()                          # concrete names
     list_networks(include_patterns=True)     # + pattern templates
 
-The five paper networks are fixed entries and take only keyword
-overrides; pattern entries (``register_pattern``) also receive the
+The five paper networks are fixed entries (``register``) and take only
+keyword overrides; pattern entries (``register_pattern``) also receive the
 ``re.Match`` of the requested name, so a family such as ``wan<K>``
 registers once.
 """
@@ -32,6 +32,14 @@ class _Pattern:
     regex: re.Pattern
     template: str            # human-readable, e.g. "wan<K>"
     builder: Callable[..., zoo.NetworkSpec]
+
+
+def register(name: str, builder: Callable[..., zoo.NetworkSpec],
+             *, overwrite: bool = False) -> None:
+    """Register a fixed network under ``name``."""
+    if name in _FIXED and not overwrite:
+        raise ValueError(f"network {name!r} already registered")
+    _FIXED[name] = builder
 
 
 def register_pattern(regex: str, template: str,

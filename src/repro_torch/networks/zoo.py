@@ -9,13 +9,16 @@ the reference's, so both packages build bit-identical matrices.
 
 Silo counts match the paper's Table 3: Gaia 11, Amazon 22, Geant 40,
 Exodus 79, Ebone 87. `_make_wan` generates a WAN of any size over the
-same metros (the registry's ``wan<K>`` family).
+same metros (the registry's ``wan<K>`` family). The per-network
+callables at the end (``gaia()``, ..., ``wan(n)``, ``NETWORKS``) are
+deprecated shims over `repro_torch.networks.registry`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 
@@ -302,3 +305,59 @@ def _make_wan(num_silos: int = 64, capacity_gbps: float = 10.0) -> NetworkSpec:
     return _build(f"wan{num_silos}", sites, capacity_gbps=capacity_gbps,
                   hetero_seed=1000 + num_silos, capacity_jitter=0.25,
                   compute_jitter=0.20)
+
+
+# ---------------------------------------------------------------------------
+# Registry delegation (`repro_torch.networks.registry` owns the lookup
+# path). The per-network callables below are deprecated shims kept for
+# code written against the reference's zoo; new code should use
+# `registry.get_network(name, **overrides)` / `registry.list_networks()`.
+# ---------------------------------------------------------------------------
+
+
+def get_network(name: str, capacity_gbps: float = 10.0) -> NetworkSpec:
+    """Resolve a network name via the registry (identical to
+    `registry.get_network`). The registry imports this module, so the
+    import stays inside the call."""
+    from repro_torch.networks import registry
+    return registry.get_network(name, capacity_gbps=capacity_gbps)
+
+
+def _deprecated_shim(name: str):
+    def build(capacity_gbps: float = 10.0) -> NetworkSpec:
+        warnings.warn(
+            f"repro_torch.networks.zoo.{name}() is deprecated; use "
+            f"repro_torch.networks.registry.get_network({name!r})",
+            DeprecationWarning, stacklevel=2)
+        return get_network(name, capacity_gbps=capacity_gbps)
+    build.__name__ = name
+    build.__qualname__ = name
+    build.__doc__ = (f"Deprecated: use registry.get_network({name!r}, "
+                     "**overrides).")
+    return build
+
+
+gaia = _deprecated_shim("gaia")
+amazon = _deprecated_shim("amazon")
+geant = _deprecated_shim("geant")
+exodus = _deprecated_shim("exodus")
+ebone = _deprecated_shim("ebone")
+
+
+def wan(num_silos: int = 64, capacity_gbps: float = 10.0) -> NetworkSpec:
+    """Deprecated: use registry.get_network(f"wan{K}", **overrides)."""
+    warnings.warn("repro_torch.networks.zoo.wan(n) is deprecated; use "
+                  "repro_torch.networks.registry.get_network(f'wan{n}')",
+                  DeprecationWarning, stacklevel=2)
+    return get_network(f"wan{num_silos}", capacity_gbps=capacity_gbps)
+
+
+#: Deprecated name->builder map (iteration order preserved); prefer
+#: `registry.list_networks()`.
+NETWORKS = {
+    "gaia": gaia,
+    "amazon": amazon,
+    "geant": geant,
+    "exodus": exodus,
+    "ebone": ebone,
+}

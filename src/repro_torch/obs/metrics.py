@@ -51,6 +51,10 @@ class MetricsSpec:
     staleness: bool = True
     traffic: bool = True
 
+    @property
+    def any_norm(self) -> bool:
+        return self.grad_norm or self.param_norm or self.update_norm
+
     def __post_init__(self):
         if not (self.grad_norm or self.param_norm or self.update_norm
                 or self.silo_loss or self.staleness or self.traffic):

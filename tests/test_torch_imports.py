@@ -1,6 +1,7 @@
-"""Import hygiene of the PyTorch port: `repro_torch` and `chip_smoke.py`
-import neither jax, networkx, the reference package `repro`, msgpack nor
-ml_dtypes (the card's machine has none of them)."""
+"""Import hygiene of the PyTorch port: `repro_torch`, its examples
+(`examples_torch/`) and `chip_smoke.py` import neither jax, networkx,
+the reference package `repro`, msgpack nor ml_dtypes (the card's machine
+has none of them)."""
 
 import ast
 import os
@@ -48,6 +49,37 @@ def test_package_sources_import_nothing_forbidden():
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
         bad = _imported_roots(path) & set(FORBIDDEN)
         assert not bad, (path, bad)
+
+
+EXAMPLES = ("topology_comparison", "quickstart", "serve_decode",
+            "continuous_batching", "fl_llm_finetune")
+
+
+def test_example_sources_import_nothing_forbidden():
+    paths = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert {p.stem for p in paths} == set(EXAMPLES)
+    for path in paths:
+        roots = _imported_roots(path)
+        assert "repro_torch" in roots, path
+        bad = roots & set(FORBIDDEN)
+        assert not bad, (path, bad)
+
+
+def test_examples_import_nothing_forbidden():
+    """Each example, loaded as a module the way the smoke loads it,
+    brings in none of the forbidden packages."""
+    code = (
+        "import importlib.util, sys\n"
+        f"for name in {EXAMPLES!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'examples_torch/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_mesh_and_lora_import_nothing_forbidden():
